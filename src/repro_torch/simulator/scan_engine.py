@@ -1,0 +1,399 @@
+"""Interval scan engine + lane-batched ARMS sweeps, in torch.
+
+The port of ``repro/simulator/scan_engine.py`` for trace replay of the
+ARMS policy.  One replay walks the trace interval by interval in a Python
+loop (JAX's ``lax.scan``); every carried array has an explicit leading
+lane axis ``[B, ...]`` (JAX's ``vmap``).  Per interval: PEBS sampling
+from a common-random-number field, the policy's observe/fires, the policy
+pass with the hop-chain migrations on intervals where some lane fires,
+and the interval cost model with the oracle recall.  The hot path goes
+through the four interval-step ops (kernels/interval_step): the EWMA
+score update and the top-k hot mask inside the policy, the migration
+executor on fire intervals and the accounting every interval.
+
+Entry points:
+  * ``simulate``             — one run of a spec, SimResult output;
+  * ``arms_sim``             — ARMS replay of a trace;
+  * ``sweep_policy_configs`` — one lane per config of the ARMS family,
+    sharing one CRN field;
+  * ``sweep_arms_configs``   — ARMS knob grid; the two mode-dependent
+    observation grids are computed once and shared by all lanes.
+
+Sampling modes: ``"crn"`` (a [T, n] uniform field, transformed per
+interval with each lane's period) and ``"pre"`` (precomputed [T, P, n]
+observation grids).  Reductions: ``"stack"`` ([B, T] timelines) and
+``"stream"`` (running sums, nothing [T]-shaped).
+
+The any-lane fire gate is a host branch on ``do.any()``: on intervals
+where no lane's policy is due, the policy pass and the migration executor
+are skipped (in JAX an all-``-1`` plan would execute nothing, so the
+outputs are the same).  Final [B] results are formed on the CPU.
+
+Waiting for later slices, each raising ``NotImplementedError``: the
+``"prng"``/``"crn_prng"`` sampling modes (they need JAX's threefry in
+torch), the trace-synthesis path, the tier-native route and
+``tier_shim``, ``mixed_observation`` specs and the other policy families.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.baselines.arms_policy import SWEEPABLE, ARMSSpec
+from repro_torch.core.state import ARMSConfig
+from repro_torch.kernels.interval_step import ops as interval_ops
+from repro_torch.simulator import machine_spec, machines, simjax
+from repro_torch.simulator.engine import SimResult, oracle_topk_masks
+from repro_torch.simulator.sampling import (_NORMAL_SWITCH,
+                                            pebs_sample_from_uniform,
+                                            uniform_field)
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import (bwhere, lane_specs, stack_specs,
+                                      take_lanes)
+
+__all__ = [
+    "SWEEPABLE", "simulate", "arms_sim", "sweep_policy_configs",
+    "sweep_arms_configs", "sweep_seeds", "simulate_workload",
+    "sweep_workloads", "sweep_workload_configs", "last_dispatch",
+]
+
+#: Info about the most recent engine pass (lanes, sampling mode, T,
+#: lane_intervals).
+last_dispatch: dict = {}
+
+_PRNG_WAITS = ("PRNG sampling needs JAX's threefry ported to torch "
+               "(ROADMAP queue 1 item 7); pass sample_u for CRN sampling")
+
+
+def _need_normal(trace, min_period: float) -> bool:
+    """Host: can any page's sampling rate reach the normal-approx regime?"""
+    return bool(np.max(trace) / float(min_period) >= _NORMAL_SWITCH)
+
+
+def _check_spec(spec):
+    cls = type(spec)
+    if cls.tier_native:
+        raise NotImplementedError("the tier-native route is not ported yet")
+    if cls.mixed_observation:
+        raise NotImplementedError(
+            "mixed_observation (union fabric) specs are not ported yet")
+    if not isinstance(spec, ARMSSpec):
+        raise NotImplementedError(
+            f"policy family {spec.name!r} is not ported yet (ARMS only)")
+
+
+def _mach_lanes(machine, B: int, n: int, k: int, device):
+    """One machine broadcast to B lanes -> (mach [B, ...], caps i32 [B, R])."""
+    mach, caps = machine_spec.lane_stack([machines.get(machine)], n, k,
+                                         device)
+    idx = torch.zeros((B,), dtype=torch.long, device=device)
+    return take_lanes(mach, idx), caps.index_select(0, idx)
+
+
+#: intervals per chunk of ``_precompute_observations``: the sampling is
+#: elementwise, so the chunking bounds the temporaries and changes no value
+_OBS_ROWS = 256
+
+
+def _precompute_observations(trace, u, periods: tuple, need_normal: bool):
+    """[T, P, n] observation grids for a shared CRN field, one per period,
+    computed ``_OBS_ROWS`` intervals at a time."""
+    T, n = trace.shape
+    obs = torch.empty((T, len(periods), n), dtype=torch.float32,
+                      device=trace.device)
+    pers = [torch.tensor(float(p), dtype=torch.float32, device=trace.device)
+            for p in periods]
+    for lo in range(0, T, _OBS_ROWS):
+        hi = min(T, lo + _OBS_ROWS)
+        for j, p in enumerate(pers):
+            obs[lo:hi, j] = pebs_sample_from_uniform(
+                u[lo:hi], trace[lo:hi], p, need_normal=need_normal)
+    return obs
+
+
+def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
+              need_normal: bool, reduce: str = "stack"):
+    """Batched replay on ``trace``'s device; returns a dict of [B] CPU
+    results (+ [B, T] timelines under ``reduce="stack"``).
+
+    ``spec`` is lane-batched, ``mach`` a TieredMachineSpec with [B, R]
+    leaves and ``caps`` its resolved i32 [B, R] capacities; ``trace`` f32
+    [T, n] and ``oracle`` bool [T, n] are shared by all lanes.  ``sample``
+    is the [T, n] uniform field (``"crn"``) or the [T, P, n] observation
+    grids (``"pre"``).
+    """
+    if reduce not in ("stack", "stream") or sampling not in ("crn", "pre"):
+        raise ValueError(f"reduce={reduce!r} / sampling={sampling!r}")
+    T, n = trace.shape
+    B = caps.shape[0]
+    dev = trace.device
+    f32, i32 = torch.float32, torch.int32
+    R = caps.shape[-1]
+
+    state = spec.init(n, k, mach)
+    tier = torch.full((B, n), R - 1, dtype=i32, device=dev)  # all at bottom
+    promoted_at = torch.full((B, n), -(10 ** 9), dtype=i32, device=dev)
+    demoted_at = torch.full((B, n), -(10 ** 9), dtype=i32, device=dev)
+    zf = lambda: torch.zeros((B,), dtype=f32, device=dev)
+    zi = lambda: torch.zeros((B,), dtype=i32, device=dev)
+    slow_bw = torch.ones((B,), dtype=f32, device=dev)  # all pages start slow
+    app_bw = zf()
+    exec_time, acc_fast_total, acc_total, recall_sum = zf(), zf(), zf(), zf()
+    promotions, demotions, wasteful = zi(), zi(), zi()
+    zpair = torch.zeros((B, R - 1), dtype=i32, device=dev)
+    slow_sum, hits_sum, mode_sum, promos_max = zf(), zf(), zi(), zi()
+    ys = {"slow": [], "hits": [], "mode": [], "promos": []}
+
+    for t in range(T):
+        true_b = trace[t][None].expand(B, n)
+        orc_b = oracle[t][None].expand(B, n)
+        if sampling == "pre":
+            observed = sample[t].index_select(0, spec.obs_index(state).long())
+        else:
+            period = spec.sampling_period(state)[:, None]
+            observed = pebs_sample_from_uniform(
+                sample[t][None], true_b, period, need_normal=need_normal)
+        state = spec.observe(state, observed)
+        do = spec.fires(state)                                   # [B]
+
+        if bool(do.any()):
+            st2, promote, demote = spec.policy(state, slow_bw, app_bw, k)
+            # lanes whose policy is not due keep their state; their plans
+            # are blanked so no migrations execute.
+            state = bwhere(do, st2, state)
+            promote = torch.where(do[:, None], promote, -1)
+            demote = torch.where(do[:, None], demote, -1)
+            tier, pexec, dexec, mig_up, mig_down = interval_ops.tier_migrate(
+                tier, promote, demote, caps)
+            waste, promoted_at, demoted_at = simjax.wasteful_update(
+                t, promoted_at, demoted_at, promote, demote, pexec, dexec)
+            n_promo = pexec.sum(dim=1, dtype=i32)
+            n_demo = dexec.sum(dim=1, dtype=i32)
+        else:
+            n_promo, n_demo, waste = zi(), zi(), zi()
+            mig_up = mig_down = zpair
+        acc_fast, acc_slow, wall, slow_share, app_raw, recall = \
+            interval_ops.interval_account(mach, true_b, tier, mig_up.float(),
+                                          mig_down.float(), orc_b, k)
+
+        slow_bw = slow_share
+        # consumer-side clamp of the raw tier-0 utilization: the policy
+        # sees a signal in [0, 1].
+        app_bw = torch.clamp_max(app_raw, 1.0)
+        exec_time = exec_time + wall
+        promotions = promotions + n_promo
+        demotions = demotions + n_demo
+        wasteful = wasteful + waste
+        acc_fast_total = acc_fast_total + acc_fast
+        acc_total = acc_total + acc_fast + acc_slow
+        recall_sum = recall_sum + recall
+        hits_val = acc_fast / torch.clamp_min(acc_fast + acc_slow, 1e-9)
+        mode = spec.mode_of(state)
+        if reduce == "stream":
+            slow_sum = slow_sum + slow_share
+            hits_sum = hits_sum + hits_val
+            mode_sum = mode_sum + mode
+            promos_max = torch.maximum(promos_max, n_promo)
+        else:
+            for key, v in (("slow", slow_share), ("hits", hits_val),
+                           ("mode", mode), ("promos", n_promo)):
+                ys[key].append(v)
+
+    out = dict(
+        exec_time=exec_time.cpu(), promotions=promotions.cpu(),
+        demotions=demotions.cpu(), wasteful=wasteful.cpu(),
+        hot_recall=recall_sum.cpu() / T,
+        fast_hit_frac=acc_fast_total.cpu()
+        / torch.clamp_min(acc_total.cpu(), 1e-9))
+    if reduce == "stream":
+        out.update(
+            mean_slow_bw=slow_sum.cpu() / T,
+            mean_fast_hits=hits_sum.cpu() / T,
+            mean_mode=mode_sum.cpu().float() / T,
+            max_promotions_interval=promos_max.cpu())
+    else:
+        out.update({f"timeline_{nm}": torch.stack(ys[key], dim=1).cpu()
+                    for nm, key in (("slow_bw", "slow"), ("fast_hits", "hits"),
+                                    ("mode", "mode"),
+                                    ("promotions", "promos"))})
+    return out
+
+
+def _to_result(out, lane: int, name: str) -> SimResult:
+    lane_out = {key: v[lane] for key, v in out.items()}
+    res = SimResult(
+        name=name,
+        exec_time_s=float(lane_out["exec_time"]),
+        promotions=int(lane_out["promotions"]),
+        demotions=int(lane_out["demotions"]),
+        wasteful=int(lane_out["wasteful"]),
+        hot_recall=float(lane_out["hot_recall"]),
+        fast_hit_frac=float(lane_out["fast_hit_frac"]))
+    if "timeline_slow_bw" in lane_out:       # reduce="stack"
+        res.timeline_slow_bw = lane_out["timeline_slow_bw"].numpy() \
+            .astype(np.float64)
+        res.timeline_fast_hits = lane_out["timeline_fast_hits"].numpy() \
+            .astype(np.float64)
+        res.timeline_mode = lane_out["timeline_mode"].numpy().astype(np.int32)
+        res.timeline_promotions = lane_out["timeline_promotions"].numpy() \
+            .astype(np.int32)
+    else:                                    # reduce="stream" summaries
+        res.mean_slow_bw = float(lane_out["mean_slow_bw"])
+        res.mean_fast_hits = float(lane_out["mean_fast_hits"])
+        res.mean_mode = float(lane_out["mean_mode"])
+        res.max_promotions_interval = int(
+            lane_out["max_promotions_interval"])
+    return res
+
+
+def _record_dispatch(**info):
+    info["lane_intervals"] = int(info["lanes"]) * int(info["T"])
+    last_dispatch.clear()
+    last_dispatch.update(info)
+
+
+def _inputs(trace, k: int, sample_u, device):
+    """Host trace -> (trace f32, oracle bool, uniform field f32) on the
+    device, plus the host trace."""
+    trace = np.asarray(trace, np.float32)
+    T, n = trace.shape
+    if not 0 < k <= n:
+        raise ValueError(f"k={k} must lie in 1..{n}")
+    sample_u = np.asarray(sample_u, np.float32)
+    if sample_u.shape != (T, n):
+        raise ValueError(f"sample_u {sample_u.shape} != trace {(T, n)}")
+    oracle = oracle_topk_masks(trace, k)
+    to = lambda a: torch.from_numpy(np.require(a, requirements="CW")).to(
+        device)
+    return to(trace), to(oracle), to(sample_u), trace
+
+
+# ------------------------------------------------------------- public API
+def simulate(spec, trace, machine, k: int, seed: int = 0, sample_u=None,
+             name: str | None = None, tier_shim: bool = False,
+             device=None) -> SimResult:
+    """Replay of ``trace`` [T, n] under an ARMS spec with the CRN field
+    ``sample_u`` [T, n] (``sampling.uniform_field``); ``machine`` is a
+    registry name / MachineSpec / TieredMachineSpec.  ``seed`` only
+    selects the PRNG sampling path, which waits."""
+    if sample_u is None:
+        raise NotImplementedError(_PRNG_WAITS)
+    if tier_shim:
+        raise NotImplementedError("tier_shim (the tier-native route) is not "
+                                  "ported yet")
+    _check_spec(spec)
+    dev = resolve_device(device)
+    trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
+    T, n = trace.shape
+    mach, caps = _mach_lanes(machine, 1, n, k, dev)
+    out = _simulate(lane_specs(spec, 1).to(dev), trace_d, oracle, k, mach,
+                    caps, u, "crn",
+                    _need_normal(trace, spec.min_sampling_period()))
+    _record_dispatch(lanes=1, sampling="crn", policy=spec.name, T=T,
+                     reduce="stack", device=str(dev))
+    return _to_result(out, 0, name or spec.name)
+
+
+def sweep_seeds(trace, machine, k: int, seeds, cfg=None, spec=None,
+                device=None):
+    raise NotImplementedError(_PRNG_WAITS)
+
+
+def sweep_policy_configs(spec_family, trace, machine, k: int, configs,
+                         sim_seed: int = 0, sample_u=None, device=None
+                         ) -> list[SimResult]:
+    """Lane-batched sweep over one policy family's knob grid (ARMS family:
+    ``spec_family`` maps a config dict to an ``ARMSSpec``).  All lanes
+    share ONE CRN field (``sample_u`` or ``uniform_field(T, n,
+    seed=sim_seed)``), so config comparisons are paired."""
+    configs = list(configs)
+    if not configs:
+        raise ValueError("sweep_policy_configs needs at least one config")
+    specs = [spec_family(**cfg) for cfg in configs]
+    _check_spec(specs[0])
+    dev = resolve_device(device)
+    trace = np.asarray(trace, np.float32)
+    T, n = trace.shape
+    if sample_u is None:
+        sample_u = uniform_field(T, n, seed=sim_seed)
+    trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
+    min_period = min(s.min_sampling_period() for s in specs)
+    mach, caps = _mach_lanes(machine, len(configs), n, k, dev)
+    out = _simulate(stack_specs(specs).to(dev), trace_d, oracle, k, mach,
+                    caps, u, "crn", _need_normal(trace, min_period))
+    _record_dispatch(lanes=len(configs), sampling="crn",
+                     policy=specs[0].name, T=T, reduce="stack",
+                     device=str(dev))
+    labels = [",".join(f"{nm}={v:.6g}" for nm, v in sorted(cfg.items()))
+              for cfg in configs]
+    return [_to_result(out, i, f"{specs[0].name}[{lbl}]")
+            for i, lbl in enumerate(labels)]
+
+
+def arms_sim(trace, machine, k: int, cfg: ARMSConfig | None = None,
+             seed: int = 0, sample_u=None, name: str = "arms",
+             device=None) -> SimResult:
+    """ARMS replay of ``trace`` with the CRN field ``sample_u``."""
+    return simulate(ARMSSpec.make(base_cfg=cfg), trace, machine, k,
+                    seed=seed, sample_u=sample_u, name=name, device=device)
+
+
+def sweep_arms_configs(trace, machine, k: int, overrides: dict,
+                       base_cfg: ARMSConfig | None = None, seed: int = 0,
+                       sample_u=None, reduce: str = "stack", device=None
+                       ) -> list[SimResult]:
+    """Batched ARMS runs over a grid of float knob settings.
+
+    ``overrides`` maps ARMSConfig float field names to equal-length value
+    lists; row b of every list forms config b.  All configs share one CRN
+    field (``sample_u`` or ``uniform_field(T, n, seed=seed)``), so the
+    per-mode observation grids (``ARMSSpec.PRE_PERIODS``) are computed
+    once and shared by every lane.  ``reduce="stream"`` drops the
+    ``timeline_*`` stacks (the scalars are identical).
+    """
+    names = tuple(sorted(overrides))
+    if not names:
+        raise ValueError("overrides must name at least one ARMSConfig knob")
+    B = len(overrides[names[0]])
+    if B == 0 or any(len(overrides[nm]) != B for nm in names):
+        raise ValueError(
+            "override value lists must be non-empty and of equal length; "
+            f"got {({nm: len(overrides[nm]) for nm in names})}")
+    specs = [ARMSSpec.make({nm: overrides[nm][b] for nm in names},
+                           base_cfg=base_cfg) for b in range(B)]
+    dev = resolve_device(device)
+    trace = np.asarray(trace, np.float32)
+    T, n = trace.shape
+    if sample_u is None:
+        sample_u = uniform_field(T, n, seed=seed)
+    trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
+    need_normal = _need_normal(trace, specs[0].min_sampling_period())
+    obs = _precompute_observations(trace_d, u, ARMSSpec.PRE_PERIODS,
+                                   need_normal)
+    del u
+    mach, caps = _mach_lanes(machine, B, n, k, dev)
+    out = _simulate(stack_specs(specs).to(dev), trace_d, oracle, k, mach,
+                    caps, obs, "pre", need_normal, reduce=reduce)
+    _record_dispatch(lanes=B, sampling="pre", policy="arms", T=T,
+                     reduce=reduce, device=str(dev))
+    labels = [",".join(f"{nm}={float(overrides[nm][b]):.4g}" for nm in names)
+              for b in range(B)]
+    return [_to_result(out, i, f"arms[{lbl}]")
+            for i, lbl in enumerate(labels)]
+
+
+# --------------------------------------------- trace synthesis (workloads)
+_SYNTH_WAITS = ("the trace-synthesis path (WorkloadSpec state in the scan) "
+                "is not ported yet; replay a materialized trace instead")
+
+
+def simulate_workload(*args, **kwargs):
+    raise NotImplementedError(_SYNTH_WAITS)
+
+
+def sweep_workloads(*args, **kwargs):
+    raise NotImplementedError(_SYNTH_WAITS)
+
+
+def sweep_workload_configs(*args, **kwargs):
+    raise NotImplementedError(_SYNTH_WAITS)

@@ -1,0 +1,101 @@
+"""Tensor dataclass helpers — the port's stand-in for ``pytree_dataclass``.
+
+``tensor_dataclass`` makes a frozen dataclass whose fields are tensors
+(or nested tensor dataclasses); fields named in ``meta`` are static
+identity data that every helper below passes through untouched.  Every
+instance gets ``replace(**kw)`` and ``to(device)``.
+
+Lane helpers: sweep lanes are an explicit leading ``[B, ...]`` axis on
+every leaf (the JAX package puts them under ``vmap``).  ``lane_specs``
+broadcasts one spec to B identical lanes, ``stack_specs`` stacks
+same-family specs leaf-wise, ``take_lanes`` gathers lanes, and ``bwhere``
+selects per lane.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _replace(self, **kw):
+    return dataclasses.replace(self, **kw)
+
+
+def _to(self, device):
+    return tree_map(lambda x: x.to(device), self)
+
+
+def tensor_dataclass(cls=None, *, meta: tuple = ()):
+    def wrap(c):
+        c = dataclasses.dataclass(frozen=True)(c)
+        c._meta_fields = tuple(meta)
+        c.replace = _replace
+        c.to = _to
+        return c
+
+    return wrap(cls) if cls is not None else wrap
+
+
+def _data_fields(obj):
+    meta = getattr(type(obj), "_meta_fields", ())
+    return [f.name for f in dataclasses.fields(obj) if f.name not in meta]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf-wise over tensor dataclasses (meta fields kept
+    from ``tree``); tensors are leaves, nested dataclasses recurse."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree) and hasattr(type(tree), "_meta_fields"):
+        return dataclasses.replace(tree, **{
+            nm: tree_map(fn, getattr(tree, nm), *[getattr(r, nm) for r in rest])
+            for nm in _data_fields(tree)})
+    raise TypeError(f"not a tensor dataclass leaf: {type(tree).__name__}")
+
+
+def lane_specs(spec, B: int):
+    """Broadcast one spec's leaves to B identical sweep lanes."""
+    return tree_map(lambda x: x.unsqueeze(0).expand((B,) + x.shape)
+                    .contiguous(), spec)
+
+
+def stack_specs(specs):
+    """Stack same-family specs leaf-wise into one lane-batched spec."""
+    specs = list(specs)
+    return tree_map(lambda *xs: torch.stack(xs), specs[0], *specs[1:])
+
+
+def take_lanes(tree, idx):
+    """Gather lanes of a lane-batched tree along axis 0."""
+    return tree_map(lambda x: x.index_select(0, idx), tree)
+
+
+def bwhere(pred, a, b):
+    """Per-lane select: ``pred`` bool [B], leaves [B] or [B, ...]."""
+    return tree_map(
+        lambda x, y: torch.where(pred.reshape((-1,) + (1,) * (x.dim() - 1)),
+                                 x, y), a, b)
+
+
+def scatter_drop(x, idx, val, valid):
+    """Per-lane ``x[b, idx[b, i]] = val`` where ``valid[b, i]``: the port
+    of ``x.at[jnp.where(valid, idx, n)].set(val, mode="drop")``.
+
+    torch has no dropping scatter, so the rows are copied once into a
+    flat buffer with one scratch element past the end, invalid entries
+    are sent there, and the result is a contiguous view of the rows.
+    Valid indices of one lane are unique (the padded-index contract), so
+    the write order of a parallel scatter never matters.  ``val`` is a
+    tensor shaped like ``idx`` or a Python scalar.  ``x`` is not changed.
+    """
+    B, n = x.shape
+    flat = x.new_empty((B * n + 1,))
+    flat[:B * n].copy_(x.reshape(-1))
+    lane = torch.arange(0, B * n, n, device=x.device).unsqueeze(1)
+    at = torch.where(valid, idx + lane, B * n).reshape(-1)
+    if isinstance(val, torch.Tensor):
+        flat.scatter_(0, at, val.to(x.dtype).reshape(-1))
+    else:
+        flat.index_fill_(0, at, val)
+    return flat[:B * n].view(B, n)
