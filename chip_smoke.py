@@ -6,25 +6,39 @@
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 It imports the port only (``src/repro_torch``), never JAX, and:
 
-  1. builds the interval-step CUDA kernels from ``src/`` and prints the
-     card's name and power limit and the build time;
+  1. builds the CUDA kernels from ``src/`` (one ``nvcc`` per source, all
+     started together) and prints the card's name and power limit and
+     the build time;
   2. kernel phase: holds each kernel against its plain PyTorch version on
-     the card at the main path's shapes (16 lanes, n = 65,536 pages,
-     k = 8,192, 2 and 3 tiers, 64-entry plans) and times both on the
-     device (CUDA graphs of repeated calls over inputs larger than L2,
-     CUDA events), beside the least time the card could take for the same
-     bytes and operations;
-  3. main path: ``sweep_arms_configs`` over a 16-lane ``alpha_s x noise_z``
-     grid on ``pmem-large`` at n = 65,536, k = 8,192, T = 4,096 with the
-     streaming reduction, then ``arms_sim`` on the 3-tier ``dram-cxl-pmem``
-     at T = 1,024, on a GUPS-like trace made with numpy from ``--seed``;
-     the launch counts are set to 0 before each of the two and read after
-     it, and every kernel must have been launched by each; then a
-     ``torch.profiler`` window of 256 intervals gives the device busy
-     share and the device time by kernel;
-  4. whole-path check: the same entry points on the card and on the CPU at
-     n = 4,096, T = 256, 4 lanes, on both machines — counts exact,
-     exec_time within 1e-4 relative;
+     the card at the main path's shapes and times both on the device
+     (CUDA graphs of repeated calls over inputs larger than L2, CUDA
+     events), beside the least time the card could take for the same
+     bytes and operations and, where one exists, a PyTorch library call
+     computing the same function: the interval-step kernels at 16 lanes,
+     n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans; the page
+     migration and paged attention at the serving path's full-width
+     shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
+     sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
+     attention at pos = 511 over 32 pages with 256 folded query heads);
+  3. main path, three paths, each with every launch count set to 0 just
+     before it and read just after (each kernel of the path must have
+     been launched): ``sweep_arms_configs`` over a 16-lane
+     ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
+     k = 8,192, T = 4,096 with the streaming reduction; ``arms_sim`` on
+     the 3-tier ``dram-cxl-pmem`` at T = 1,024, on a GUPS-like trace made
+     with numpy from ``--seed``; then ``launch.serve.serve`` decoding 512
+     greedy tokens at batch 8 of granite-8b at its full width and depth
+     (36 layers, d_model 4,096, bf16, random weights from the seed) with
+     layer 0's KV pages tiered by ARMS; then ``torch.profiler`` windows
+     give the device busy share and device time by kernel of the sweep
+     and of 64 serving tokens, and CUDA events split a serving token into
+     model decode and tiered layer;
+  4. whole-path checks: the scan-engine entry points on the card and on
+     the CPU at n = 4,096, T = 256, 4 lanes, on both machines (counts
+     exact, exec_time within 1e-4 relative); the serving loop at reduced
+     granite-8b (48 tokens, batch 2, pages of 8) on the card and on the
+     CPU with the same weights and streams (plans, residency, slots and
+     tokens exact; attention mass, fast-mass share and pools within 1e-5);
   5. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -38,6 +52,8 @@ import json
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -47,8 +63,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.kernels import _backend  # noqa: E402
 from repro_torch.kernels.interval_step import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.migrate import kernel as mkernel  # noqa: E402
+from repro_torch.kernels.migrate import ref as mref  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    kernel as pkernel)
+from repro_torch.kernels.paged_attention import ref as pref  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.simulator import (machine_spec, machines,  # noqa: E402
                                    scan_engine)
+from repro_torch.tiering import paged_kv as PK  # noqa: E402
 from repro_torch.simulator.sampling import uniform_field  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -56,8 +81,17 @@ L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 B, N, K, T = 16, 65536, 8192, 4096
 PLAN = 64                      # ARMSConfig.bs_max: promote/demote widths
-TPU_KERNEL = "src/repro/kernels/interval_step/kernel.py"
-SOURCE = "src/repro_torch/kernels/interval_step/csrc/interval_step.cu"
+# kernel -> (its CUDA source, the TPU kernel it replaces as file:line)
+ROUTES = {
+    "ewma_update": ("interval_step", "interval_step/kernel.py:332"),
+    "topk_mask": ("interval_step", "interval_step/kernel.py:87"),
+    "tier_migrate": ("interval_step", "interval_step/kernel.py:198"),
+    "interval_account": ("interval_step", "interval_step/kernel.py:292"),
+    "migrate": ("migrate", "migrate/kernel.py:38"),
+    "paged_attention": ("paged_attention", "paged_attention/kernel.py:69"),
+}
+KERNELS = tuple(ROUTES)
+BUILDS = (kernel.SOURCE, mkernel.SOURCE, pkernel.SOURCE)
 
 
 def card_line() -> str:
@@ -140,29 +174,42 @@ def require(cond: bool, what: str):
 def kernel_phase(dev, rng):
     rows = {}
 
-    def entry(name, line, shape, kern, plain, args, exact, bytes_, ops,
-              lib=None):
+    def entry(name, shape, kern, plain, args, exact, bytes_, ops, lib=None,
+              abs_tol=None, fresh=None):
+        """Not ``exact``: within 1e-6 relative, or with ``abs_tol``
+        within it absolutely and relatively above 1.  ``fresh(args)``
+        gives the inputs for each of kernel and plain where the function
+        updates an input in place.  ``lib`` is a function of the same
+        arguments or ``(function, prep)`` with ``prep(args)`` its
+        arguments (made before timing)."""
         as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
-        got, want = as_tuple(kern(*args)), as_tuple(plain(*args))
+        fresh = fresh or (lambda a: a)
+        got, want = as_tuple(kern(*fresh(args))), as_tuple(plain(*fresh(args)))
         err = max_err(got, want)
         if exact:
             require(err == 0.0, f"{name}: kernel differs from plain ({err})")
         else:
+            floor, tol = (1e-30, 1e-6) if abs_tol is None else (1.0, abs_tol)
             rel = max(float(((g.double() - w.double()).abs()
-                             / w.double().abs().clamp_min(1e-30)).max())
+                             / w.double().abs().clamp_min(floor)).max())
                       for g, w in zip(got, want))
-            require(rel <= 1e-6, f"{name}: relative error {rel} > 1e-6")
+            require(rel <= tol, f"{name}: error {rel} > {tol}")
         bms, by = bound(bytes_, ops)
         sets = copies(args, bytes_)
         ms, plain_ms = cuda_ms(kern, sets), cuda_ms(plain, sets)
-        lib_ms = None if lib is None else cuda_ms(lib, sets)
+        if lib is not None and not isinstance(lib, tuple):
+            lib = (lib, lambda a: a)
+        lib_ms = None if lib is None else cuda_ms(
+            lib[0], [lib[1](a) for a in sets])
         print(f"kernel {name} ({shape}): max_abs_err={err} ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms={lib_ms} "
               f"bound_ms={bms:.5f}", flush=True)
         if name not in rows:   # the JSON line keeps the first (2-tier) shape
+            src, tpu = ROUTES[name]
             rows[name] = dict(
-                name=name, route="cuda", source=SOURCE,
-                replaces=f"{TPU_KERNEL}:{line}", launches=0,
+                name=name, route="cuda",
+                source=f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
+                replaces=f"src/repro/kernels/{tpu}", launches=0,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -170,7 +217,7 @@ def kernel_phase(dev, rng):
     # ewma_update: scores of 16 lanes, per-lane params
     args = tuple(f(rng.random((B, N), dtype=np.float32)) for _ in range(3))
     args += (f(rng.random((B, 4), dtype=np.float32)),)
-    entry("ewma_update", 332, f"B={B} n={N}", kernel.ewma_update,
+    entry("ewma_update", f"B={B} n={N}", kernel.ewma_update,
           ref.ewma_score_update_ref, args, True,
           nbytes(*args) + 3 * 4 * B * N, 6 * B * N)
 
@@ -182,7 +229,7 @@ def kernel_phase(dev, rng):
         m = torch.zeros((B, N), dtype=torch.bool, device=dev)
         return m.scatter_(1, torch.topk(x, k, dim=1).indices, True)
 
-    entry("topk_mask", 87, f"B={B} n={N} k={K}", kernel.topk_mask,
+    entry("topk_mask", f"B={B} n={N} k={K}", kernel.topk_mask,
           ref.topk_mask_ref, (x, K), True, nbytes(x) + B * N, 5 * B * N,
           library)
 
@@ -198,7 +245,7 @@ def kernel_phase(dev, rng):
             plans[0, b] = perm[:PLAN]
             plans[1, b, :PLAN // 2] = perm[PLAN:PLAN + PLAN // 2]
         args = (tier, f(plans[0]), f(plans[1]), caps)
-        entry("tier_migrate", 198, f"B={B} n={N} R={R} P=D={PLAN}",
+        entry("tier_migrate", f"B={B} n={N} R={R} P=D={PLAN}",
               kernel.tier_migrate, ref.tier_migrate_ref, args, True,
               nbytes(*args) + nbytes(tier) + 2 * B * PLAN
               + 8 * B * (R - 1), 4 * B * N)
@@ -213,11 +260,85 @@ def kernel_phase(dev, rng):
         require(torch.equal(ops.interval_account(*args)[5],
                             ref.interval_account_ref(*args)[5]),
                 "interval_account: recall")
-        entry("interval_account", 292, f"B={B} n={N} R={R} k={K}",
+        entry("interval_account", f"B={B} n={N} R={R} k={K}",
               ops.interval_account, ref.interval_account_ref, args, False,
               nbytes(mach.lat_ns, mach.bw_read, mach.bw_write, mach.mlp,
                      *args[1:6]) + 6 * B * 4, (2 * R + 1) * B * N)
+    serving_rows(entry, f, rng)
     return rows
+
+
+# the serving path at granite-8b's full width: 32 pages of 16 tokens x 8
+# sequences x 8 KV heads x 128 (f32, 512 KiB a page), 8 of them fast
+PF, NP, PG, SB, SH, SKV, DH = 8, 32, 16, 8, 32, 8, 128
+
+
+def serving_rows(entry, f, rng):
+    idx = lambda a: f(np.asarray(a, np.int32))
+    pools = tuple(f(rng.standard_normal((PF + NP, PG, SB * SKV * DH),
+                                        dtype=np.float32)) for _ in (0, 1))
+    # a fire: 8 demotions (fast slot -> home row), then 8 promotions (home
+    # row -> a vacated fast slot), each one launch over the K and V pools
+    demoted = rng.choice(NP, 8, replace=False)
+    promoted = rng.choice(np.setdiff1d(np.arange(NP), demoted), 8,
+                          replace=False)
+    fire = (idx(np.arange(8)), idx(PF + demoted), idx(PF + promoted),
+            idx(rng.permutation(8)), f(np.ones(8, bool)))
+
+    def fire_kernel(k, v, d_src, d_dst, p_src, p_dst, ok):
+        mkernel.migrate((k, v), (k, v), d_src, d_dst, ok)
+        mkernel.migrate((k, v), (k, v), p_src, p_dst, ok)
+        return k, v
+
+    def fire_plain(k, v, d_src, d_dst, p_src, p_dst, ok):
+        for src, dst in ((d_src, d_dst), (p_src, p_dst)):
+            for pool in (k, v):
+                mref.migrate_ref(pool, pool, src, dst, ok)
+        return k, v
+
+    def fire_library(k, v, d_src, d_dst, p_src, p_dst, ok):
+        for src, dst in ((d_src, d_dst), (p_src, p_dst)):
+            for pool in (k, v):
+                pool.index_copy_(0, dst.long(), pool.index_select(
+                    0, src.long()))
+        return k, v
+
+    row_bytes = PG * SB * SKV * DH * 4
+    entry("migrate", f"pools 2 x [{PF + NP}, {PG}, {SB * SKV * DH}] f32, "
+          f"8 demotions + 8 promotions", fire_kernel, fire_plain,
+          pools + fire, True, 2 * 2 * 16 * row_bytes + 4 * 8 * 4 + 8, 0,
+          fire_library, fresh=lambda a: (a[0].clone(), a[1].clone()) + a[2:])
+
+    # attention at pos = 511: 32 valid pages, 8 of them fast
+    H, KV = SB * SH, SB * SKV
+    kp = pools[0].view(PF + NP, PG, KV, DH)
+    vp = pools[1].view(PF + NP, PG, KV, DH)
+    fast = rng.choice(NP, PF, replace=False)
+    table = PF + np.arange(NP)
+    table[fast] = np.arange(PF)
+    q = f(rng.standard_normal((1, H, DH), dtype=np.float32))
+    args = (q, kp, vp, idx(table[None]), idx([NP * PG]))
+
+    def gathered(a):
+        q, kp, vp, tab, _ = a
+        g = lambda p: p[tab[0].long()].reshape(1, NP * PG, KV, DH) \
+            .transpose(1, 2).contiguous()
+        return q.view(1, H, 1, DH), g(kp), g(vp)
+
+    def sdpa(q4, k4, v4):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=True)
+
+    lib_err = float((sdpa(*gathered(args)).view(1, H, DH)
+                     - pref.paged_attention_ref(*args)).abs().max())
+    print(f"library scaled_dot_product_attention vs plain: max_abs_err="
+          f"{lib_err}", flush=True)
+    entry("paged_attention", f"q [1, {H}, {DH}], pools [{PF + NP}, {PG}, "
+          f"{KV}, {DH}] f32, {NP} pages, pos {NP * PG - 1}",
+          lambda *a: pkernel.paged_attention(*a, page_mass=True),
+          lambda *a: pref.paged_attention_ref(*a, page_mass=True), args,
+          False, nbytes(q) * 2 + 2 * NP * PG * KV * DH * 4 + 4 * NP + 4
+          + 4 * NP, 4 * H * NP * PG * DH, (sdpa, gathered), abs_tol=1e-5)
 
 
 # ---------------------------------------------------------------- main path
@@ -247,23 +368,25 @@ def summary(results):
                 exec_time_s=[r.exec_time_s for r in results])
 
 
-PATH_KERNELS = ("ewma_update", "topk_mask", "tier_migrate",
+SCAN_KERNELS = ("ewma_update", "topk_mask", "tier_migrate",
                 "interval_account")
+SERVE_KERNELS = ("ewma_update", "topk_mask", "migrate", "paged_attention")
 
 
-def counted(label: str, run):
+def counted(label: str, run, path_kernels=SCAN_KERNELS):
     """Drive one path of the main path with every launch count set to 0
     just before it and read just after; each kernel of the path must have
-    been launched.  -> (result, wall seconds, launch counts)."""
+    been launched.  -> (result, wall seconds, launch counts of every
+    kernel)."""
     torch.cuda.synchronize()
     _backend.reset_launches()
     t0 = time.time()
     out = run()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {nm: int(_backend.launches.get(nm, 0)) for nm in PATH_KERNELS}
-    for nm, c in counts.items():
-        require(c > 0, f"{nm} was not launched by {label}")
+    counts = {nm: int(_backend.launches.get(nm, 0)) for nm in KERNELS}
+    for nm in path_kernels:
+        require(counts[nm] > 0, f"{nm} was not launched by {label}")
     return out, wall, counts
 
 
@@ -296,7 +419,86 @@ def main_path(seed: int):
           f"promotions={r.promotions} demotions={r.demotions} "
           f"wasteful={r.wasteful} launches={sim_counts}", flush=True)
     profile_window(trace, u)
-    return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts}
+
+    rep, wall3, serve_counts = counted("serve", lambda: serve.serve(
+        "granite-8b", n_tokens=SERVE_TOKENS, batch=SB, full=True, seed=seed,
+        quiet=True), SERVE_KERNELS)
+    require(rep.fast_mass.shape == (SERVE_TOKENS,)
+            and bool(np.isfinite(rep.fast_mass).all())
+            and np.isfinite(rep.slowdown) and rep.promotions > 0,
+            "serve: non-finite telemetry or no promotions")
+    print(f"main path serve granite-8b full: tokens={SERVE_TOKENS} "
+          f"batch={SB} wall_s={wall3:.3f} init_s={rep.init_s:.3f} "
+          f"decode_s={SERVE_TOKENS * SB / rep.tok_s:.3f} "
+          f"tok_s={rep.tok_s:.1f} promotions={rep.promotions} "
+          f"demotions={rep.demotions} thrash={rep.thrash:.4f} "
+          f"slowdown={rep.slowdown:.4f} fast_mass_end={rep.fast_mass[-1]:.4f} "
+          f"launches={serve_counts}", flush=True)
+    del rep
+    serve_breakdown(seed)
+    return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
+            "serve": serve_counts}
+
+
+SERVE_TOKENS = 512
+
+
+def serve_breakdown(seed: int, T_: int = 64, T_prof: int = 32):
+    """Where a full-width serving token's time goes: CUDA events around
+    the model decode and the tiered layer over ``T_`` tokens (device
+    timeline, host gaps included) with PyTorch's sync debug mode counting
+    the host syncs, then a ``torch.profiler`` window of ``T_prof`` more
+    tokens for the busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    cfg, params, pk_cfg, kv, cache, draw = serve.setup(
+        "granite-8b", SERVE_TOKENS, SB, full=True, seed=seed)
+    torch.cuda.synchronize()
+    print(f"serve breakdown: weights {cfg.n_params:,} params, cache and "
+          f"pools made in {time.time() - t0:.3f}s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    token = torch.zeros((SB, 1), dtype=torch.int32, device="cuda")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(T_)]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.time()
+        try:
+            for t in range(T_):
+                ev[t][0].record()
+                logits, cache = M.decode_step(params, token, cache, t, cfg)
+                token = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+                ev[t][1].record()
+                q, k_new, v_new = draw(t)
+                _, kv, _ = PK.serve_decode_step(kv, q, k_new, v_new, t,
+                                                pk_cfg)
+                ev[t][2].record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    syncs = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    model = sum(e[0].elapsed_time(e[1]) for e in ev)
+    tiered = sum(e[1].elapsed_time(e[2]) for e in ev)
+    print(f"serve breakdown: {T_} tokens wall_s={wall:.4f} per token: "
+          f"model decode {model / T_:.4f} ms, tiered layer "
+          f"{tiered / T_:.4f} ms (device timeline between events); host "
+          f"syncs in the loop: {syncs}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for t in range(T_, T_ + T_prof):
+            logits, cache = M.decode_step(params, token, cache, t, cfg)
+            token = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+            q, k_new, v_new = draw(t)
+            _, kv, _ = PK.serve_decode_step(kv, q, k_new, v_new, t, pk_cfg)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    device_rows(prof, f"profile serve {T_prof} tokens", wall, T_prof)
 
 
 def profile_window(trace, u, T_: int = 256):
@@ -312,6 +514,12 @@ def profile_window(trace, u, T_: int = 256):
                                        sample_u=u[:T_], reduce="stream")
         torch.cuda.synchronize()
         wall = time.time() - t0
+    device_rows(prof, f"profile sweep_arms_configs T={T_}", wall)
+
+
+def device_rows(prof, label: str, wall: float, steps: int = 0):
+    """Print the busy share of ``wall`` and the device time by name (and,
+    given ``steps``, the device kernels and copies a step)."""
     # device-side rows only (kernels, copies): an operator row also carries
     # the device time of the kernels it launched, which would count twice;
     # "Activity Buffer Request" is the profiler's own buffer traffic
@@ -320,9 +528,10 @@ def profile_window(trace, u, T_: int = 256):
               and e.self_device_time_total > 0
               and not e.key.startswith("Activity Buffer")]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"profile sweep_arms_configs T={T_}: wall_s={wall:.3f} "
-          f"device_busy_s={busy:.3f} busy_share={busy / wall:.4f}",
-          flush=True)
+    per_step = f" device_ops_per_step={sum(e.count for e in events) / steps}" \
+        if steps else ""
+    print(f"{label}: wall_s={wall:.4f} device_busy_s={busy:.4f} "
+          f"busy_share={busy / wall:.4f}{per_step}", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  device {e.self_device_time_total / 1e3:9.2f} ms "
               f"x{e.count:6d}  {e.key[:70]}", flush=True)
@@ -366,6 +575,52 @@ def whole_path_check(seed: int):
               f"{[r.wasteful for r in runs['cuda']]}", flush=True)
 
 
+def serve_check(seed: int, T_: int = 48, batch: int = 2):
+    """The serving loop on the card and on the CPU: reduced granite-8b in
+    f32 (TF32 off), weights made from the seed on the CPU, the same q/k/v
+    streams.  Plans, residency, slots and tokens exact at every step;
+    attention mass, fast-mass share and the pools within 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.reduced(registry.get_arch("granite-8b"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    to = lambda t, d: {k: to(v, d) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(d)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _, p, pk_cfg, kv, cache, draw = serve.setup(
+            "granite-8b", T_, batch, page_size=8, seed=seed, device=dev,
+            params=to(params, dev))
+        token = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        ewma = torch.zeros((pk_cfg.n_pages,), dtype=torch.float32,
+                           device=dev)
+        steps = []
+        for t in range(T_):
+            token, cache, kv, plan, ewma, share = serve.serve_token(
+                p, cfg, pk_cfg, token, cache, kv, ewma, t, draw)
+            steps.append([x.cpu() for x in (
+                token, plan.promote, plan.demote, plan.pexec, plan.dexec,
+                kv.in_fast, kv.slot, plan.access, share)])
+        runs[dev] = steps, kv.k.cpu(), kv.v.cpu()
+    (card, kc, vc), (cpu, kw, vw) = runs["cuda"], runs["cpu"]
+    fires = 0
+    for t, (a, b) in enumerate(zip(card, cpu)):
+        for nm, x, y in zip(("token", "promote", "demote", "pexec", "dexec",
+                             "in_fast", "slot"), a[:7], b[:7]):
+            require(torch.equal(x, y), f"serve check t={t}: {nm} differs "
+                    f"card {x.tolist()} cpu {y.tolist()}")
+        for nm, x, y in zip(("mass", "fast-mass share"), a[7:], b[7:]):
+            err = float((x.double() - y.double()).abs().max())
+            require(err <= 1e-5, f"serve check t={t}: {nm} error {err}")
+        fires += int((a[1] >= 0).any())
+    err = max(float((x - y).abs().max()) for x, y in ((kc, kw), (vc, vw)))
+    require(err <= 1e-5, f"serve check: pools differ by {err}")
+    print(f"serve check: card == cpu over {T_} tokens at batch {batch} "
+          f"(reduced granite-8b, f32): plans, residency, slots and tokens "
+          f"exact ({fires} fires with plans, "
+          f"{int(card[-1][5].sum())} pages fast at the end); pools max "
+          f"error {err}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -378,15 +633,17 @@ def main():
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     t0 = time.time()
-    _backend.build(kernel.SOURCE)
+    with ThreadPoolExecutor(len(BUILDS)) as pool:   # one nvcc per source
+        list(pool.map(_backend.build, BUILDS))
     print(f"build: {time.time() - t0:.2f}s", flush=True)
 
     rows = kernel_phase(dev, np.random.default_rng(args.seed))
     by_path = main_path(args.seed)
-    for nm, row in rows.items():   # launches: both paths of the main path
+    for nm, row in rows.items():   # launches: every path of the main path
         row["launches"] = sum(c[nm] for c in by_path.values())
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
     whole_path_check(args.seed)
+    serve_check(args.seed)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -3,8 +3,9 @@
 ``ARMSSpec`` is the functional-protocol spec: pure init/observe/fires/
 policy over tensor-dataclass state, with the ARMSConfig float knobs under
 sweep (``cfg_names``/``cfg_vals``) as leaves, so a tuning grid runs as
-lanes of one engine pass.  ``ARMSServeSpec`` (serving pools) and the
-numpy engine's ``ARMSPolicy`` wait.
+lanes of one engine pass.  ``ARMSServeSpec`` is ARMS as the serving
+pools run it (``tiering/tiered_pool.py``).  The numpy engine's
+``ARMSPolicy`` waits.
 """
 from __future__ import annotations
 
@@ -79,6 +80,11 @@ class ARMSSpec(PolicySpec):
             self.base_cfg,
             **{nm: self.cfg_vals[:, i] for i, nm in enumerate(self.cfg_names)})
 
+    def pad_promote(self, n, k):
+        return max(1, min(n, self.base_cfg.bs_max))
+
+    pad_demote = pad_promote
+
     def init(self, n_pages, k, machine):
         """``machine``: lane-batched TieredMachineSpec ([B, R] leaves)."""
         B = machine.lat_ns.shape[0]
@@ -125,6 +131,47 @@ class ARMSSpec(PolicySpec):
         inner = inner.replace(
             promo_cost=torch.where(moved, fed.promo_cost, inner.promo_cost),
             demo_cost=torch.where(moved, fed.demo_cost, inner.demo_cost))
+        promote = torch.where(plan.valid, plan.promote, -1).to(torch.int32)
+        demote = torch.where(plan.valid & (plan.demote >= 0), plan.demote,
+                             -1).to(torch.int32)
+        state = state.replace(inner=inner, buf=torch.zeros_like(state.buf))
+        return state, promote, demote
+
+
+@tensor_dataclass(meta=("cfg_names", "base_cfg", "pool_every"))
+class ARMSServeSpec(ARMSSpec):
+    """ARMS exactly as the serving layer runs it: RAW accumulated counts
+    (no per-interval normalization), a FIXED ``pool_every`` cadence (not
+    the mode-dependent 5/1 simulator cadence), and no §4.3 migration-cost
+    feedback.  The port of ``repro/baselines/arms_policy.py``'s
+    ``ARMSServeSpec``; a serving pool drives one lane (``B = 1``)."""
+
+    pool_every: int = 8
+
+    @classmethod
+    def make_serving(cls, base_cfg: ARMSConfig,
+                     pool_every: int) -> "ARMSServeSpec":
+        return dataclasses.replace(cls.make(base_cfg=base_cfg),
+                                   pool_every=int(pool_every))
+
+    def fires(self, state):
+        # observe() increments t first, so the first fire lands on
+        # interval pool_every.
+        return (state.t % self.pool_every) == 0
+
+    def fires_at(self, t: int) -> bool:
+        """``fires`` for a host-side count of observed intervals: the
+        cadence is fixed, so the pool decides without a device sync."""
+        return t % self.pool_every == 0
+
+    def sampling_period(self, state):
+        return torch.full_like(state.t, self.DEFAULT_SAMPLE_PERIOD,
+                               dtype=torch.float32)
+
+    def policy(self, state, slow_bw, app_bw, k):
+        # raw counts, no normalization, no migration-cost feedback
+        inner, plan = arms_step_impl(state.inner, state.buf, slow_bw,
+                                     app_bw, cfg=self.cfg(), k=k)
         promote = torch.where(plan.valid, plan.promote, -1).to(torch.int32)
         demote = torch.where(plan.valid & (plan.demote >= 0), plan.demote,
                              -1).to(torch.int32)

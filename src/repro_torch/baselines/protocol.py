@@ -18,6 +18,9 @@ engine's ``LegacyPolicyAdapter`` wait.
 """
 from __future__ import annotations
 
+#: padding entry of the padded-index plans
+SENTINEL = -1
+
 
 class PolicySpec:
     """Base of the functional policy protocol (subclass + tensor_dataclass).
@@ -32,6 +35,14 @@ class PolicySpec:
     mixed_observation: bool = False
 
     DEFAULT_SAMPLE_PERIOD = 10_000.0
+
+    def pad_promote(self, n: int, k: int) -> int:
+        """Width of the padded ``promote`` plan."""
+        raise NotImplementedError
+
+    def pad_demote(self, n: int, k: int) -> int:
+        """Width of the padded ``demote`` plan."""
+        raise NotImplementedError
 
     def init(self, n_pages: int, k: int, machine):
         raise NotImplementedError

@@ -2,11 +2,14 @@
 
 Each function takes the JAX package's object with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, obj)``) and returns the
-port's tensor dataclass.  Fields are read by name, so nothing of the JAX
-package is imported here.  A per-lane object (the JAX package's layout
-outside ``vmap``) gains a lane axis of 1; a lane-batched one keeps its
-lanes.  Like every entry point of the port, each function puts its
-tensors on the CUDA card unless the caller passes ``device="cpu"``.
+port's tensor dataclass (or, for ``model_params``, its parameter dict):
+the simulator's policy state and machines, the model weights, and the
+serving layer's ``TieredPool`` and ``PagedKV``.  Fields are read by name,
+so nothing of the JAX package is imported here.  A per-lane object (the
+JAX package's layout outside ``vmap``) gains a lane axis of 1; a
+lane-batched one keeps its lanes.  Like every entry point of the port,
+each function puts its tensors on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.baselines.arms_policy import ARMSRunState, ARMSSpec
 from repro_torch.core.state import ARMSConfig, PHTState, TieringState
 from repro_torch.simulator.machine_spec import TieredMachineSpec
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_map
 
 
 def _tensor(x, lanes: bool, device):
@@ -75,3 +79,48 @@ def machine(obj, device=None) -> TieredMachineSpec:
               for f in dataclasses.fields(TieredMachineSpec)
               if f.name != "name"}
     return TieredMachineSpec(**leaves, name=obj.name)
+
+
+# ---------------------------------------------------------------- serving
+def model_params(params_np, cfg, device=None):
+    """The JAX parameter tree (nested dicts, numpy leaves; bf16 leaves as
+    ``ml_dtypes.bfloat16``) as the port's params in ``cfg``'s dtype.  The
+    trees have the same keys and leaf shapes (``models/model.py``)."""
+    from repro_torch.models.layers import dtype_of
+    device = resolve_device(device)
+    dtype = dtype_of(cfg)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x, np.float32)).to(device, dtype)
+
+    return leaf(params_np)
+
+
+def tiered_pool(pool, device=None):
+    """A JAX ``TieredPool`` driven by ``ARMSServeSpec`` as the port's
+    (one policy lane; the host count ``t`` from the pool's ``t``)."""
+    from repro_torch.baselines.arms_policy import ARMSServeSpec
+    from repro_torch.tiering.tiered_pool import TieredPool
+    device = resolve_device(device)
+    spec = ARMSServeSpec(
+        cfg_vals=torch.from_numpy(np.array(pool.spec.cfg_vals, np.float32))
+        .to(device), cfg_names=tuple(pool.spec.cfg_names),
+        base_cfg=arms_config(pool.spec.base_cfg),
+        pool_every=int(pool.spec.pool_every))
+    return _fields(TieredPool, pool, True, device, spec=spec,
+                   state=arms_run_state(pool.state, device),
+                   mach=tree_map(lambda x: x[0], machine(pool.mach, device)),
+                   t=int(np.asarray(pool.t)))
+
+
+def paged_kv(kv, device=None):
+    """A JAX ``PagedKV`` as the port's: each of K and V one tensor, the
+    fast pool's rows first, then the slow pool's."""
+    from repro_torch.tiering.paged_kv import PagedKV
+    device = resolve_device(device)
+    cat = lambda f, s: torch.from_numpy(
+        np.concatenate([np.asarray(f), np.asarray(s)])).to(device)
+    return PagedKV(k=cat(kv.k_fast, kv.k_slow), v=cat(kv.v_fast, kv.v_slow),
+                   pool=tiered_pool(kv.pool, device))

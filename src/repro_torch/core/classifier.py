@@ -16,13 +16,12 @@ import torch
 
 from repro_torch.core.state import MODE_RECENCY, ARMSConfig, TieringState
 from repro_torch.kernels.interval_step import ops
+from repro_torch.utils.device import f32_on
 
 
 def _sel(pred, a, b):
     """``jnp.where(pred, a, b)`` for config values (floats or [B])."""
-    f32 = dict(dtype=torch.float32, device=pred.device)
-    return torch.where(pred, torch.as_tensor(a, **f32),
-                       torch.as_tensor(b, **f32))
+    return torch.where(pred, f32_on(a, pred.device), f32_on(b, pred.device))
 
 
 def score_weights(cfg: ARMSConfig, mode):

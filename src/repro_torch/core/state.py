@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch.utils.pytree import tensor_dataclass
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import f32_on, resolve_device
 
 MODE_HISTORY = 0
 MODE_RECENCY = 1
@@ -95,8 +95,7 @@ class TieringState:
 
 def lane_f32(v, B: int, device):
     """A config value (Python float or f32 [B] tensor) as f32 [B]."""
-    return torch.as_tensor(v, dtype=torch.float32, device=device).expand(B) \
-        .clone()
+    return f32_on(v, device).expand(B).clone()
 
 
 def init_pht(B: int, device=None) -> PHTState:

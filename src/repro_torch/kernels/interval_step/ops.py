@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.interval_step import kernel, ref
+from repro_torch.utils.device import f32_on
 
 
 def _on_card(t) -> bool:
@@ -53,7 +54,7 @@ def _ewma_params(alpha_s, alpha_l, w_s, w_l, B: int, device):
     """Per-lane f32 [B, 4] parameter block; each value a Python float or
     a [B] tensor."""
     return torch.stack(
-        [torch.as_tensor(v, dtype=torch.float32, device=device).expand(B)
+        [f32_on(v, device).expand(B)
          for v in (alpha_s, alpha_l, w_s, w_l)], dim=1).contiguous()
 
 

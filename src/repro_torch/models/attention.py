@@ -1,0 +1,85 @@
+"""GQA attention for the dense decode path (plain tensor functions).
+
+The port of ``repro/models/attention.py``'s ``gqa_init``, ``gqa_qkv``,
+``gqa_decode_flat`` and ``KVCache``.  The decode cache is the JAX
+package's stacked KV-major ``[L, B, KV, S, dh]`` layout, written in place
+at ``(layer, :, :, pos)``; scores and softmax run in f32 and the
+probabilities are cast to V's dtype before the second product.  MLA,
+cross attention and the full-sequence (prefill/train) paths wait for
+ROADMAP queue 1 item 12.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.utils.pytree import tensor_dataclass
+
+NEG_INF = -1e30
+
+
+@tensor_dataclass
+class KVCache:
+    """Stacked decode cache, ``k``/``v`` ``[L, B, KV, S, dh]``."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def gqa_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    p = {"wq": L.linear_init(gen, D, H * dh, **kw),
+         "wk": L.linear_init(gen, D, KV * dh, **kw),
+         "wv": L.linear_init(gen, D, KV * dh, **kw),
+         "wo": L.linear_init(gen, H * dh, D, scale=0.5, **kw)}
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(dh, dtype, device, lead)
+        p["k_norm"] = L.rmsnorm_init(dh, dtype, device, lead)
+    return p
+
+
+def gqa_qkv(p, x, positions, cfg, *, rope: bool = True):
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = L.linear(p["wq"], x).reshape(B, S, H, dh)
+    k = L.linear(p["wk"], x).reshape(B, S, KV, dh)
+    v = L.linear(p["wv"], x).reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+    return q, k, v
+
+
+def gqa_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,
+                    window: int = 0):
+    """One-token decode writing into the stacked cache in place.
+
+    x ``[B, 1, D]``; ``k_st``/``v_st`` ``[L, B, KV, S, dh]``; ``idx`` the
+    layer, ``pos`` the token position (host ints).  Returns
+    ``(out, k_st, v_st)`` with the caches the same tensors."""
+    B = x.shape[0]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = gqa_qkv(p, x, positions, cfg)     # [B, 1, H|KV, dh]
+    S_max = k_st.shape[3]
+    ring = bool(window) and S_max <= window
+    slot = pos % S_max if ring else pos
+    k_st[idx, :, :, slot] = k_new[:, 0]
+    v_st[idx, :, :, slot] = v_new[:, 0]
+    k_l, v_l = k_st[idx], v_st[idx]                     # [B, KV, S, dh]
+
+    rep = H // KV
+    qg = q.reshape(B, KV, rep, dh)
+    s = torch.einsum("bkrd,bksd->bkrs", qg, k_l).float() * dh ** -0.5
+    kj = torch.arange(S_max, device=x.device)
+    mask = kj <= pos
+    if window and not ring:
+        mask &= kj > pos - window
+    s = torch.where(mask, s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(v_l.dtype)
+    out = torch.einsum("bkrs,bksd->bkrd", probs, v_l)
+    out = L.linear(p["wo"], out.reshape(B, 1, H * dh))
+    return out, k_st, v_st

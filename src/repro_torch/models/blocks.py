@@ -1,0 +1,30 @@
+"""Dense (GQA) transformer block, pre-norm residual, decode mode.
+
+The port of ``repro/models/blocks.py``'s ``dense_block_init`` and
+``dense_block_decode_flat``; the other block families wait for ROADMAP
+queue 1 item 12.
+"""
+from __future__ import annotations
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+def dense_block_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
+    return {"ln1": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
+            "attn": A.gqa_init(gen, cfg, dtype, device, lead),
+            "ln2": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
+            "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                 lead)}
+
+
+def dense_block_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,
+                            window: int = 0):
+    """Decode against the stacked ``[L, B, KV, S, dh]`` cache (in-place
+    writes).  Returns ``(x, k_st, v_st)``."""
+    h, k_st, v_st = A.gqa_decode_flat(
+        p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), k_st, v_st, idx,
+        pos, cfg, window=window)
+    x = x + h
+    x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, k_st, v_st

@@ -3,8 +3,10 @@
 The port of ``repro/simulator/simjax.py`` for the binary hop-chain route:
 the interval cost model (``tier_access_split``, ``_tier_times``,
 ``tier_interval_outcome``, ``interval_accounting_impl``), the hop-chain
-migration executor (``apply_tier_migrations``) and the wasteful-migration
-accounting (``wasteful_update``).  Every function takes an explicit lane
+migration executor (``apply_tier_migrations``), the two-tier boolean
+executor of the serving pools (``apply_padded_migrations``,
+``apply_migrations``) and the wasteful-migration accounting
+(``wasteful_update``).  Every function takes an explicit lane
 axis: rows are ``[B, n]``, machine leaves ``[B, R]``, per-lane scalars
 ``[B]``.  The cost model and the migration executor are the plain versions
 behind the ``interval_account`` and ``tier_migrate`` kernels.
@@ -174,3 +176,34 @@ def wasteful_update(t: int, promoted_at, demoted_at, promote, demote, pexec,
     promoted_at = scatter_drop(promoted_at, promote, t, pexec)
     demoted_at = scatter_drop(demoted_at, demote, t, dexec)
     return waste, promoted_at, demoted_at
+
+
+def apply_padded_migrations(in_fast, promote, demote, k):
+    """Two-tier boolean executor over lanes: ``in_fast`` bool ``[B, n]``,
+    ``promote``/``demote`` i32 ``[B, P]``/``[B, D]`` under the
+    padded-index contract (``-1`` padding, valid entries unique page
+    indices in priority order), ``k`` the fast capacity.
+
+    Demotions of pages in the fast tier apply first; then promotions of
+    pages not (any longer) in the fast tier, in plan order, capped by the
+    free capacity after demotions.  Returns ``(in_fast, pexec, dexec)``:
+    the new residency and bool masks of the executed entries."""
+    d_safe = torch.where(demote >= 0, demote, 0).long()
+    dexec = (demote >= 0) & in_fast.gather(1, d_safe)
+    in_fast = scatter_drop(in_fast, demote, False, dexec)
+    p_safe = torch.where(promote >= 0, promote, 0).long()
+    p_ok = (promote >= 0) & ~in_fast.gather(1, p_safe)
+    room = k - _count(in_fast)[:, None]
+    rank = torch.cumsum(p_ok.to(torch.int32), dim=1) - 1
+    pexec = p_ok & (rank < room)
+    in_fast = scatter_drop(in_fast, promote, True, pexec)
+    return in_fast, pexec, dexec
+
+
+def apply_migrations(in_fast, promote, demote, valid, k):
+    """Joint-``valid``-mask form (ARMS ``MigrationPlan`` layout) of
+    ``apply_padded_migrations``: entries with ``valid`` False are padding
+    in both arrays."""
+    return apply_padded_migrations(
+        in_fast, torch.where(valid, promote, -1),
+        torch.where(valid & (demote >= 0), demote, -1), k)

@@ -14,3 +14,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def f32_on(v, device) -> torch.Tensor:
+    """A config value (Python number or tensor) as f32 on ``device``.  A
+    Python number becomes a device-side fill: ``torch.as_tensor`` would
+    copy it from pageable host memory, which synchronises the stream."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)

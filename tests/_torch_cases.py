@@ -48,3 +48,40 @@ def account_case(B, n, machine, seed):
     down = rng.integers(0, 5, (B, R - 1)).astype(np.float32)
     oracle = rng.random((B, n)) < 0.25
     return pmach, true, tier, up, down, oracle, k
+
+
+# (Ps, Pd, M, page, feat): the shapes of tests/test_kernels.py, odd page
+# and feature sizes, and the serving pool's fused K/V rows.
+MIGRATE_SHAPES = [(16, 8, 4, 16, 128), (4, 4, 4, 8, 256),
+                  (32, 32, 12, 64, 128), (9, 7, 5, 3, 5), (6, 11, 6, 1, 7)]
+# (B, H, KV, dh, page, n_pp): the shapes of tests/test_kernels.py.
+PAGED_SHAPES = [(2, 8, 4, 128, 16, 4), (1, 4, 4, 64, 32, 2),
+                (3, 16, 2, 128, 8, 8), (2, 8, 8, 128, 64, 2)]
+
+
+def migrate_pools_case(Ps, Pd, M, page, feat, seed, dtype=np.float32):
+    """(src, dst, src_idx, dst_idx, valid) numpy arrays: unique valid
+    indices, about a third of the entries invalid with -1 indices."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((Ps, page, feat)).astype(dtype)
+    dst = rng.standard_normal((Pd, page, feat)).astype(dtype)
+    src_idx = rng.choice(Ps, M, replace=False).astype(np.int32)
+    dst_idx = rng.choice(Pd, M, replace=False).astype(np.int32)
+    valid = rng.random(M) < 0.7
+    src_idx[~valid & (rng.random(M) < 0.5)] = -1
+    dst_idx[~valid & (rng.random(M) < 0.5)] = -1
+    return src, dst, src_idx, dst_idx, valid
+
+
+def paged_case(B, H, KV, dh, page, n_pp, seed, lens=None):
+    """(q, k_pages, v_pages, tables, lens) f32 numpy arrays over a pool of
+    ``n_pp * B + 3`` pages, distinct table entries."""
+    rng = np.random.default_rng(seed)
+    P = n_pp * B + 3
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    k = rng.standard_normal((P, page, KV, dh)).astype(np.float32)
+    v = rng.standard_normal((P, page, KV, dh)).astype(np.float32)
+    tables = rng.choice(P, (B, n_pp), replace=False).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, n_pp * page + 1, B)
+    return q, k, v, tables, np.asarray(lens, np.int32)

@@ -1,15 +1,18 @@
-"""The hand-written CUDA interval-step kernels against their plain
-versions, on the card (marked ``cuda``; skipped where there is none).
+"""The hand-written CUDA kernels against their plain versions, on the
+card (marked ``cuda``; skipped where there is none).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_kernels_cuda.py
 
-Every output must equal the plain version's exactly: the masks, tiers and
-counts are integers, the EWMA is op for op the same f32 arithmetic (the
-kernels build with ``-fmad=false``), and the accounting sums round once
-from f64 on both sides.  This file imports no JAX, so it runs where the
-JAX package is not installed.
+The interval-step kernels and the page migration must equal the plain
+version exactly: the masks, tiers, counts and copied rows are exact, the
+EWMA is op for op the same f32 arithmetic (the kernels build with
+``-fmad=false``), and the accounting sums round once from f64 on both
+sides.  Paged attention sums in another order than the plain version:
+its output and page mass are held within 1e-5 (absolutely, relatively
+above 1; bf16 within 2e-2), and two runs must give the same bits.  This
+file imports no JAX, so it runs where the JAX package is not installed.
 """
 import numpy as np
 import pytest
@@ -110,3 +113,129 @@ def test_wrappers_reject_bad_inputs(card):
         kernel.topk_mask(x.cpu(), 4)
     with pytest.raises(ValueError):
         kernel.topk_mask(x, 65)
+
+
+# ------------------------------------------------------------------ migrate
+from _torch_cases import (MIGRATE_SHAPES, PAGED_SHAPES,  # noqa: E402
+                          migrate_pools_case, paged_case)
+from repro_torch.kernels.migrate import kernel as mkernel  # noqa: E402
+from repro_torch.kernels.migrate import ops as mops  # noqa: E402
+from repro_torch.kernels.migrate import ref as mref  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as pref  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float16])
+@pytest.mark.parametrize("shape", MIGRATE_SHAPES)
+def test_migrate_pages_kernel_vs_plain(card, shape, dtype):
+    src, dst, si, di, va = migrate_pools_case(*shape, seed=sum(shape),
+                                              dtype=dtype)
+    d_card = _t(dst).to(card)
+    _launches("migrate", lambda: mkernel.migrate(
+        [_t(src).to(card)], [d_card], _t(si).to(card), _t(di).to(card),
+        _t(va).to(card)))
+    want = mref.migrate_ref(_t(src), _t(dst), _t(si), _t(di), _t(va))
+    assert torch.equal(d_card.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_migrate_empty_and_all_invalid(card):
+    src, dst, si, di, va = migrate_pools_case(8, 8, 4, 4, 32, seed=3)
+    d_card = _t(dst).to(card)
+    before = _backend.launches["migrate"]
+    e = torch.zeros((0,), dtype=torch.int32, device=card)
+    mkernel.migrate([_t(src).to(card)], [d_card], e, e, e.bool())
+    assert _backend.launches["migrate"] == before   # M = 0: no launch
+    _launches("migrate", lambda: mkernel.migrate(
+        [_t(src).to(card)], [d_card], _t(si).to(card), _t(di).to(card),
+        torch.zeros(4, dtype=torch.bool, device=card)))
+    assert torch.equal(d_card.cpu(), _t(dst))
+
+
+@pytest.mark.cuda
+def test_migrate_rows_same_tensor_two_pools(card):
+    """The serving layer's move: fast rows first, one launch over K and V,
+    disjoint source and destination rows within each pool."""
+    rng = np.random.default_rng(11)
+    k = rng.standard_normal((40, 16, 8 * 8 * 16)).astype(np.float32)
+    v = rng.standard_normal((40, 16, 8 * 8 * 16)).astype(np.float32)
+    si = np.array([0, 2, 5, -1, 7], np.int32)
+    di = np.array([8 + 3, 8 + 30, 8 + 9, -1, 8 + 1], np.int32)
+    va = np.array([True, True, False, False, True])
+    kc, vc = _t(k).to(card), _t(v).to(card)
+    _launches("migrate", lambda: mops.migrate_rows(
+        (kc, vc), _t(si).to(card), _t(di).to(card), _t(va).to(card)))
+    kw, vw = _t(k), _t(v)
+    mops.migrate_rows((kw, vw), _t(si), _t(di), _t(va))
+    assert torch.equal(kc.cpu(), kw) and torch.equal(vc.cpu(), vw)
+
+
+# ---------------------------------------------------------- paged attention
+def _paged_on_card(card, case, dtype=torch.float32):
+    q, k, v, tab, lens = case
+    args = [_t(q).to(dtype), _t(k).to(dtype), _t(v).to(dtype), _t(tab),
+            _t(lens)]
+    got = _launches("paged_attention", lambda: pkernel.paged_attention(
+        *(a.to(card) for a in args), page_mass=True))
+    want = pref.paged_attention_ref(*args, page_mass=True)
+    return got, want
+
+
+def _close(got, want, tol):
+    err = (got.cpu().double() - want.double()).abs()
+    assert float((err / want.double().abs().clamp_min(1.0)).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_paged_attention_kernel_vs_plain(card, shape):
+    (out, mass), (w_out, w_mass) = _paged_on_card(
+        card, paged_case(*shape, seed=sum(shape)))
+    _close(out, w_out, 1e-5)
+    _close(mass, w_mass, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAGED_SHAPES[:2])
+def test_paged_attention_kernel_bf16(card, shape):
+    (out, mass), (w_out, w_mass) = _paged_on_card(
+        card, paged_case(*shape, seed=sum(shape)), torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    _close(out.float(), w_out.float(), 2e-2)
+    _close(mass, w_mass, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 7, 16, 200, 511])
+def test_paged_attention_serve_fold_bitwise_repeatable(card, pos):
+    """The serving layer's folded view (8 sequences x 32 heads over 8 KV
+    heads, 32 pages of 16 tokens): within 1e-5 of the plain version,
+    masked pages carry exactly 0 mass, and two runs give the same bits."""
+    case = paged_case(1, 256, 64, 128, 16, 32, seed=pos, lens=[pos + 1])
+    (out, mass), (w_out, w_mass) = _paged_on_card(card, case)
+    _close(out, w_out, 1e-5)
+    _close(mass, w_mass, 1e-5)
+    assert not mass[0, pos // 16 + 1:].any()
+    (out2, mass2), _ = _paged_on_card(card, case)
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+
+
+@pytest.mark.cuda
+def test_out_of_range_indices_stay_inside_the_pools(card):
+    """Migrate skips entries with an out-of-range index; paged attention
+    clamps out-of-range table entries; both as their plain versions."""
+    src, dst, si, di, va = migrate_pools_case(9, 7, 5, 3, 5, seed=21)
+    va[:] = True
+    si[1], di[3] = 9, -2
+    d_card = _t(dst).to(card)
+    _launches("migrate", lambda: mkernel.migrate(
+        [_t(src).to(card)], [d_card], _t(si).to(card), _t(di).to(card),
+        _t(va).to(card)))
+    want = mref.migrate_ref(_t(src), _t(dst), _t(si), _t(di), _t(va))
+    assert torch.equal(d_card.cpu(), want)
+    case = list(paged_case(2, 8, 4, 128, 16, 4, seed=3))
+    case[3][0, 1] = case[1].shape[0] + 5
+    (out, mass), (w_out, w_mass) = _paged_on_card(card, case)
+    _close(out, w_out, 1e-5)
+    _close(mass, w_mass, 1e-5)
