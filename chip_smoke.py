@@ -20,7 +20,12 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
      attention at pos = 511 over 32 pages with 256 folded query heads);
-  3. main path, three paths, each with every launch count set to 0 just
+     flash attention forward and backward at the training path's shape
+     (B = 2, S = 4,096, 32 heads of 64, bf16, causal), at granite-8b's
+     GQA heads (32 over 8, dh 128, S = 2,048), windowed (1,024), and in
+     f32 (B = 1, S = 1,024, 8 heads over 2), each held to the plain
+     version computed in f32 from the same inputs;
+  3. main path, four paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
      ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
@@ -29,16 +34,27 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      with numpy from ``--seed``; then ``launch.serve.serve`` decoding 512
      greedy tokens at batch 8 of granite-8b at its full width and depth
      (36 layers, d_model 4,096, bf16, random weights from the seed) with
-     layer 0's KV pages tiered by ARMS; then ``torch.profiler`` windows
-     give the device busy share and device time by kernel of the sweep
-     and of 64 serving tokens, and CUDA events split a serving token into
-     model decode and tiered layer;
+     layer 0's KV pages tiered by ARMS; then ``launch.train.train``
+     taking 6 AdamW steps of stablelm-1.6b at its full width and depth
+     (24 layers, d_model 2,048, bf16, random weights from the seed) at
+     batch 2 x 4,096 tokens (losses finite; the first batch's loss
+     through the kernels within 1e-6 of the run's first loss and within
+     1e-2 of the loss with the plain attention); ``torch.profiler``
+     windows give the device busy share and device time by kernel of the
+     sweep, of 64 serving tokens and of one training step, CUDA events
+     split a serving token into model decode and tiered layer and a
+     training step into forward, backward and optimizer;
   4. whole-path checks: the scan-engine entry points on the card and on
      the CPU at n = 4,096, T = 256, 4 lanes, on both machines (counts
      exact, exec_time within 1e-4 relative); the serving loop at reduced
      granite-8b (48 tokens, batch 2, pages of 8) on the card and on the
      CPU with the same weights and streams (plans, residency, slots and
      tokens exact; attention mass, fast-mass share and pools within 1e-5);
+     three train steps of reduced stablelm-1.6b and granite-8b (f32,
+     batch 2, seq 40) on the card and on the CPU from the same weights
+     (loss and grad norm within 1e-5 relative, params within 1e-5 of
+     their largest entry), and a restart from a checkpoint on the card
+     against the uninterrupted run;
   5. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -68,17 +84,25 @@ from repro_torch.kernels.migrate import ref as mref  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     kernel as pkernel)
 from repro_torch.kernels.paged_attention import ref as pref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    kernel as fkernel)
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.simulator import (machine_spec, machines,  # noqa: E402
                                    scan_engine)
 from repro_torch.tiering import paged_kv as PK  # noqa: E402
 from repro_torch.simulator.sampling import uniform_field  # noqa: E402
+from repro_torch.utils.pytree import leaves, map_leaves  # noqa: E402
+from repro_torch.utils.pytree import unflatten  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 B, N, K, T = 16, 65536, 8192, 4096
 PLAN = 64                      # ARMSConfig.bs_max: promote/demote widths
 # kernel -> (its CUDA source, the TPU kernel it replaces as file:line)
@@ -89,9 +113,11 @@ ROUTES = {
     "interval_account": ("interval_step", "interval_step/kernel.py:292"),
     "migrate": ("migrate", "migrate/kernel.py:38"),
     "paged_attention": ("paged_attention", "paged_attention/kernel.py:69"),
+    "flash_attention_fwd": ("flash_attention", "flash_attention/kernel.py:73"),
+    "flash_attention_bwd": ("flash_attention", "flash_attention/kernel.py:73"),
 }
 KERNELS = tuple(ROUTES)
-BUILDS = (kernel.SOURCE, mkernel.SOURCE, pkernel.SOURCE)
+BUILDS = (kernel.SOURCE, mkernel.SOURCE, pkernel.SOURCE, fkernel.SOURCE)
 
 
 def card_line() -> str:
@@ -154,9 +180,9 @@ def nbytes(*ts) -> int:
     return total
 
 
-def bound(bytes_: int, ops: int):
+def bound(bytes_: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -265,6 +291,7 @@ def kernel_phase(dev, rng):
               nbytes(mach.lat_ns, mach.bw_read, mach.bw_write, mach.mlp,
                      *args[1:6]) + 6 * B * 4, (2 * R + 1) * B * N)
     serving_rows(entry, f, rng)
+    flash_rows(rows, rng)
     return rows
 
 
@@ -339,6 +366,146 @@ def serving_rows(entry, f, rng):
           lambda *a: pref.paged_attention_ref(*a, page_mass=True), args,
           False, nbytes(q) * 2 + 2 * NP * PG * KV * DH * 4 + 4 * NP + 4
           + 4 * NP, 4 * H * NP * PG * DH, (sdpa, gathered), abs_tol=1e-5)
+
+
+# flash attention rows: (label, B, S, H, KV, dh, causal, window, dtype);
+# the first is the training path's shape and goes into the JSON line
+FLASH_ROWS = [
+    ("train: stablelm-1.6b", 2, 4096, 32, 32, 64, True, 0, torch.bfloat16),
+    ("GQA: granite-8b heads", 2, 2048, 32, 8, 128, True, 0, torch.bfloat16),
+    ("windowed", 2, 4096, 32, 32, 64, True, 1024, torch.bfloat16),
+    ("f32", 1, 1024, 8, 2, 64, True, 0, torch.float32)]
+
+
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of one head that the mask keeps."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i if causal else np.full(S, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def plain_flash_f32(q, k, v, do, causal, window, kv_chunk: int = 8):
+    """The plain version's output and gradient, in f32 from the given
+    inputs, a group of ``kv_chunk`` KV heads (and their query heads) at a
+    time so the [B, H, S, S] f32 intermediates stay a few GiB."""
+    KV, rep = k.shape[2], q.shape[2] // k.shape[2]
+    outs, grads = [], [[], [], []]
+    for g0 in range(0, KV, kv_chunk):
+        g1 = min(KV, g0 + kv_chunk)
+        qs, ks, vs = (x.float().clone().requires_grad_() for x in (
+            q[:, :, g0 * rep:g1 * rep], k[:, :, g0:g1], v[:, :, g0:g1]))
+        out = fref.flash_attention_ref(qs, ks, vs, causal=causal,
+                                       window=window)
+        for acc, gr in zip(grads, torch.autograd.grad(
+                out, (qs, ks, vs), do[:, :, g0 * rep:g1 * rep].float())):
+            acc.append(gr)
+        outs.append(out.detach())
+        del out, qs, ks, vs
+    return torch.cat(outs, 2), [torch.cat(g, 2) for g in grads]
+
+
+def flash_rows(rows, rng):
+    """Kernel rows of flash attention, forward and backward apart.  The
+    check is against the plain version computed in f32 from the same
+    inputs: bf16 out within 2e-2 and gradients within 2e-2 of each
+    tensor's largest entry; f32 within 2e-5 (out) and 1e-4 (gradients) of
+    the largest entry; two backward runs give the same bits.  The bound
+    takes the bf16 tensor-core rate for bf16 rows and the f32 rate for
+    f32 rows.  Plain and library times: the plain version and
+    ``scaled_dot_product_attention`` on the same inputs, for the backward
+    row their forward plus backward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, B_, S, H, KV, dh, causal, window, dt in FLASH_ROWS:
+        f = lambda shape: torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dt)
+        q, k, v, do = f((B_, S, H, dh)), f((B_, S, KV, dh)), \
+            f((B_, S, KV, dh)), f((B_, S, H, dh))
+        kw = dict(causal=causal, window=window)
+        out, lse = fkernel.flash_attention_fwd(q, k, v, **kw)
+        grads = fkernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        w_out, w_grads = plain_flash_f32(q, k, v, do, causal, window)
+        tol_out, tol_grad = (2e-2, 2e-2) if dt == torch.bfloat16 \
+            else (2e-5, 1e-4)
+        err_out = float((out.float() - w_out).abs().max())
+        scale_out = 1.0 if dt == torch.bfloat16 \
+            else float(w_out.abs().max())
+        require(err_out <= tol_out * scale_out,
+                f"flash_attention_fwd {label}: error {err_out}")
+        err_grad = 0.0
+        for nm, g, w in zip(("dq", "dk", "dv"), grads, w_grads):
+            e = float((g.float() - w).abs().max())
+            top = float(w.abs().max())
+            require(e <= tol_grad * top, f"flash_attention_bwd {label}: "
+                    f"{nm} error {e} > {tol_grad} x {top}")
+            err_grad = max(err_grad, e)
+        again = fkernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                f"flash_attention_bwd {label}: two runs differ")
+        del w_out, w_grads, again
+
+        def to_bhsd(q, k, v, *rest):
+            mask = None
+            if window:   # SDPA takes a window only as an explicit mask
+                mask = torch.ones((S, S), dtype=torch.bool,
+                                  device="cuda").tril().triu(-(window - 1))
+            return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    mask) + rest
+
+        def lib_fwd(q4, k4, v4, mask, *rest):
+            return sdpa(q4, k4, v4, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=True)
+
+        def lib_fwd_bwd(q4, k4, v4, mask, do):
+            leaves_ = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            o = lib_fwd(*leaves_, mask)
+            return torch.autograd.grad(o, leaves_, do.transpose(1, 2))
+
+        def plain_fwd_bwd(q, k, v, do):
+            leaves_ = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = fref.flash_attention_ref(*leaves_, **kw)
+            return torch.autograd.grad(o, leaves_, do)
+
+        pairs = B_ * H * flash_pairs(S, causal, window)
+        el = q.element_size()
+        qkv_bytes = (2 * q.numel() + 2 * k.numel()) * el
+        for name, kern, plain, lib, args, bytes_, ops, err in (
+                ("flash_attention_fwd",
+                 lambda q, k, v, do: fkernel.flash_attention_fwd(
+                     q, k, v, **kw),
+                 lambda q, k, v, do: fref.flash_attention_ref(q, k, v, **kw),
+                 lib_fwd, (q, k, v, do),
+                 qkv_bytes + lse.numel() * 4, 4 * pairs * dh, err_out),
+                ("flash_attention_bwd",
+                 lambda q, k, v, do, o, l: fkernel.flash_attention_bwd(
+                     q, k, v, o, l, do, **kw),
+                 lambda q, k, v, do, o, l: plain_fwd_bwd(q, k, v, do),
+                 lambda q4, k4, v4, mask, do, o, l: lib_fwd_bwd(
+                     q4, k4, v4, mask, do),
+                 (q, k, v, do, out, lse),
+                 2 * qkv_bytes + lse.numel() * 4, 10 * pairs * dh,
+                 err_grad)):
+            bms, by = bound(bytes_, ops, BF16_OPS_PER_S
+                            if dt == torch.bfloat16 else F32_OPS_PER_S)
+            sets = copies(args, bytes_)
+            ms = cuda_ms(kern, sets, reps=4)
+            plain_ms = cuda_ms(plain, sets, reps=2)
+            lib_ms = cuda_ms(lib, [to_bhsd(*a) for a in sets], reps=4)
+            print(f"kernel {name} ({label}: B={B_} S={S} H={H} KV={KV} "
+                  f"dh={dh} {str(dt)[6:]} causal={causal} window={window})"
+                  f": max_abs_err={err} ms={ms:.5f} plain_ms={plain_ms:.5f}"
+                  f" library_ms={lib_ms:.5f} bound_ms={bms:.5f} ({by})",
+                  flush=True)
+            if name not in rows:
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention/kernel.py:73",
+                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        del q, k, v, do, out, lse, grads, sets
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- main path
@@ -436,8 +603,112 @@ def main_path(seed: int):
           f"launches={serve_counts}", flush=True)
     del rep
     serve_breakdown(seed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall4, train_counts = counted("train", lambda: train.train(
+        TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, full=True,
+        seed=seed, log_every=1), TRAIN_KERNELS)
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"train: losses {losses} not finite")
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    print(f"main path train {TRAIN_ARCH} full: steps={TRAIN_STEPS} "
+          f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} wall_s={wall4:.3f} "
+          f"tok_s_overall={tokens / wall4:.1f} loss_first={losses[0]:.4f} "
+          f"loss_last={losses[-1]:.4f} peak_device_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"launches={train_counts}", flush=True)
+    train_breakdown(seed, losses[0])
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
-            "serve": serve_counts}
+            "serve": serve_counts, "train": train_counts}
+
+
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 6, 2, 4096
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def train_breakdown(seed: int, first_loss: float):
+    """The full-width model against its plain version, and where a
+    training step's time goes.  With the train phase's weights (the same
+    seed) and first batch, the loss through the flash kernels must equal
+    that phase's first loss (1e-6 relative) and be within 1e-2 of the
+    loss with the plain attention (bf16 scores rounded before the f32
+    softmax, the JAX reference's arithmetic).  Then, after one warm-up
+    step, CUDA events split a step into forward (loss), backward
+    (``autograd.grad``) and optimizer (``adamw.update``), and one step
+    runs under ``torch.profiler`` for the busy share, the device time by
+    kernel and the flash kernels' share."""
+    import types
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention as A
+    dev = torch.device("cuda")
+    cfg, opt_cfg, params, st = train.setup(TRAIN_ARCH, TRAIN_STEPS,
+                                           full=True, seed=seed)
+    data = SyntheticLM(cfg.vocab_size_raw, TRAIN_SEQ, TRAIN_BATCH,
+                       seed=seed)
+    with torch.no_grad():
+        batch = train.to_device(data.batch_at(0), dev)
+        kernel_loss = float(M.loss_fn(params, batch, cfg))
+        flash_ops, A.flash_ops = A.flash_ops, types.SimpleNamespace(
+            flash_attention=fref.flash_attention_ref)
+        try:
+            plain_loss = float(M.loss_fn(params, batch, cfg))
+        finally:
+            A.flash_ops = flash_ops
+        del batch
+    rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    require(abs(kernel_loss - first_loss) <= 1e-6 * abs(first_loss)
+            and rel <= 1e-2,
+            f"train: first loss {first_loss}, recomputed {kernel_loss}, "
+            f"plain attention {plain_loss} (rel {rel})")
+    print(f"train check full width: first-batch loss through the kernels "
+          f"{kernel_loss} (the train phase's first: {first_loss}), with "
+          f"the plain attention {plain_loss}, rel {rel:.3e}; ln(vocab) = "
+          f"{np.log(cfg.vocab_size):.4f}", flush=True)
+
+    def step(i, ev=None):
+        batch = train.to_device(data.batch_at(i), dev)
+        alias = [p.detach().requires_grad_() for p in leaves(params)]
+        if ev:
+            ev[0].record()
+        loss = M.loss_fn(unflatten(params, alias), batch, cfg)
+        if ev:
+            ev[1].record()
+        grads = torch.autograd.grad(loss, alias)
+        if ev:
+            ev[2].record()
+        adamw.update(unflatten(params, list(grads)), st, params, opt_cfg)
+        if ev:
+            ev[3].record()
+        return float(loss.detach())
+
+    step(0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t0 = time.time()
+    step(1, ev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    fwd, bwd, opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    print(f"train breakdown: one step wall_s={wall:.4f}: forward {fwd:.2f} "
+          f"ms, backward {bwd:.2f} ms, optimizer {opt:.2f} ms (device "
+          f"timeline between events)", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(2)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    device_rows(prof, "profile train 1 step", wall, 1)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in events)
+    flash = sum(e.self_device_time_total for e in events
+                if e.key.startswith("void fa_"))
+    print(f"train breakdown: flash attention kernels {flash / 1e3:.2f} ms "
+          f"of {busy / 1e3:.2f} ms device busy, share={flash / busy:.4f}",
+          flush=True)
 
 
 SERVE_TOKENS = 512
@@ -621,6 +892,80 @@ def serve_check(seed: int, T_: int = 48, batch: int = 2):
           f"error {err}", flush=True)
 
 
+def train_check(seed: int, steps_: int = 3, seq: int = 40):
+    """Train steps on the card and on the CPU: reduced stablelm-1.6b and
+    granite-8b in f32 (TF32 off), weights made from the seed on the CPU,
+    the same batches.  Loss and grad norm within 1e-5 relative at every
+    step; params within 1e-5 of each leaf's largest entry, except where
+    the first gradient is nonzero and below 10 eps = 1e-7, where AdamW's
+    first step g / (|g| + eps) turns f32 summation noise into up to lr
+    (those within 2 x the summed lr).  Then a restart on the card: 4
+    steps with a checkpoint every 2, the step-4 checkpoint removed (a run
+    cut after step 2's checkpoint), a restored run of steps 2-3 against
+    the uninterrupted losses."""
+    import shutil
+    import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("stablelm-1.6b", "granite-8b"):
+        cfg = registry.reduced(registry.get_arch(arch))
+        opt = adamw.AdamWConfig(total_steps=steps_, warmup_steps=1)
+        params0 = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                                "cpu")
+        data = SyntheticLM(cfg.vocab_size_raw, seq, 2, seed=seed)
+        runs = {}
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            p = map_leaves(lambda t: t.to(dev, copy=True), params0)
+            st = adamw.init(p, opt)
+            step = steps.make_train_step(cfg, opt, remat=False)
+            rec = []
+            for i in range(steps_):
+                p, st, m = step(p, st, train.to_device(data.batch_at(i),
+                                                       dev))
+                rec.append((float(m["loss"]), float(m["grad_norm"]),
+                            float(m["lr"])))
+            runs[dev.type] = rec, map_leaves(lambda t: t.cpu(), p)
+        (card, pc), (cpu, pw) = runs["cuda"], runs["cpu"]
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            for nm, x, y in zip(("loss", "grad_norm"), a, b):
+                rel = abs(x - y) / abs(y)
+                require(rel <= 1e-5, f"train check {arch} step {i}: {nm} "
+                        f"card {x} cpu {y} (rel {rel})")
+        _, g0 = steps.make_loss_and_grads(cfg, remat=False)(
+            params0, train.to_device(data.batch_at(0), torch.device("cpu")))
+        lr_sum = sum(r[2] for r in cpu)
+        worst, noisy = 0.0, 0
+        for x, y, g in zip(leaves(pc), leaves(pw), leaves(g0)):
+            err = (x - y).abs()
+            loose = (g.abs() < 1e-7) & (g != 0)
+            noisy += int(loose.sum())
+            require(bool((err[loose] <= 2 * lr_sum).all()),
+                    f"train check {arch}: a noisy-gradient param moved "
+                    f"more than 2 x lr")
+            e = float(err[~loose].max()) / float(y.abs().max())
+            require(e <= 1e-5, f"train check {arch}: params error {e}")
+            worst = max(worst, e)
+        print(f"train check {arch} reduced: card == cpu over {steps_} "
+              f"steps at batch 2, seq {seq} (f32): losses "
+              f"{[r[0] for r in card]} grad norms {[r[1] for r in card]}; "
+              f"params within {worst:.3e} of each leaf's largest entry "
+              f"({noisy} noisy-gradient elements within 2 x lr)",
+              flush=True)
+
+    kw = dict(arch="stablelm-1.6b", n_steps=4, batch=2, seq=seq,
+              ckpt_every=2, seed=seed, log_every=100)
+    with tempfile.TemporaryDirectory() as d:
+        full = train.train(ckpt_dir=d, **kw)
+        shutil.rmtree(Path(d) / "step_00000004")
+        resumed = train.train(ckpt_dir=d, restore=True, **kw)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[2:]))
+    require(len(resumed) == 2 and rel <= 1e-5,
+            f"restart check: resumed {resumed} vs {full[2:]}")
+    print(f"restart check (card, reduced stablelm-1.6b): resumed losses "
+          f"{resumed} vs uninterrupted {full[2:]}: "
+          f"{'bitwise equal' if resumed == full[2:] else f'rel {rel}'}",
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -644,6 +989,7 @@ def main():
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
     whole_path_check(args.seed)
     serve_check(args.seed)
+    train_check(args.seed)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

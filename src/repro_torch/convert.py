@@ -3,13 +3,13 @@
 Each function takes the JAX package's object with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, obj)``) and returns the
 port's tensor dataclass (or, for ``model_params``, its parameter dict):
-the simulator's policy state and machines, the model weights, and the
-serving layer's ``TieredPool`` and ``PagedKV``.  Fields are read by name,
-so nothing of the JAX package is imported here.  A per-lane object (the
-JAX package's layout outside ``vmap``) gains a lane axis of 1; a
-lane-batched one keeps its lanes.  Like every entry point of the port,
-each function puts its tensors on the CUDA card unless the caller passes
-``device="cpu"``.
+the simulator's policy state and machines, the model weights, the
+serving layer's ``TieredPool`` and ``PagedKV``, and the optimizer's
+``AdamWState``.  Fields are read by name, so nothing of the JAX package
+is imported here.  A per-lane object (the JAX package's layout outside
+``vmap``) gains a lane axis of 1; a lane-batched one keeps its lanes.
+Like every entry point of the port, each function puts its tensors on
+the CUDA card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -96,6 +96,31 @@ def model_params(params_np, cfg, device=None):
         return torch.from_numpy(np.array(x, np.float32)).to(device, dtype)
 
     return leaf(params_np)
+
+
+def adamw_state(state_np, params, device=None):
+    """A JAX ``AdamWState`` (``step``, and ``m``/``v``/``master`` trees
+    shaped like the params; ``master`` ``{}`` without a master copy) as
+    the port's, so that a JAX run continues in the port: step i32, the
+    moments and the master in f32."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.utils.pytree import flatten_with_path
+    device = resolve_device(device)
+    shapes = {path: tuple(p.shape) for path, p in flatten_with_path(params)}
+
+    def f32_tree(tree):
+        if isinstance(tree, dict):
+            return {k: f32_tree(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree, np.float32)).to(device)
+
+    out = {nm: f32_tree(getattr(state_np, nm)) for nm in ("m", "v", "master")}
+    for nm, tree in out.items():
+        got = {path: tuple(t.shape) for path, t in flatten_with_path(tree)}
+        if got and got != shapes:
+            raise ValueError(f"adamw_state: {nm} does not match the params")
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32,
+                          device=device), **out)
 
 
 def tiered_pool(pool, device=None):

@@ -1,17 +1,23 @@
-"""GQA attention for the dense decode path (plain tensor functions).
+"""GQA attention for the dense family (plain tensor functions).
 
 The port of ``repro/models/attention.py``'s ``gqa_init``, ``gqa_qkv``,
-``gqa_decode_flat`` and ``KVCache``.  The decode cache is the JAX
-package's stacked KV-major ``[L, B, KV, S, dh]`` layout, written in place
-at ``(layer, :, :, pos)``; scores and softmax run in f32 and the
-probabilities are cast to V's dtype before the second product.  MLA,
-cross attention and the full-sequence (prefill/train) paths wait for
-ROADMAP queue 1 item 12.
+``causal_mask``, ``gqa_full``, ``gqa_decode_flat`` and ``KVCache``.  The
+full-sequence path (train, prefill) runs every sequence length through
+the flash attention op (``kernels/flash_attention``: the hand-written
+kernels and their gradient on the card, the plain version on the CPU),
+GQA native, where the JAX package takes its naive ``_sdpa`` below
+4,096 tokens and ``xla_flash.flash_sdpa`` from there on; all three
+compute the same function.  The decode cache is the JAX package's stacked
+KV-major ``[L, B, KV, S, dh]`` layout, written in place at
+``(layer, :, :, pos)``; scores and softmax run in f32 and the
+probabilities are cast to V's dtype before the second product.  MLA and
+cross attention wait for ROADMAP queue 1 item 12.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.utils.pytree import tensor_dataclass
 
@@ -20,9 +26,21 @@ NEG_INF = -1e30
 
 @tensor_dataclass
 class KVCache:
-    """Stacked decode cache, ``k``/``v`` ``[L, B, KV, S, dh]``."""
+    """Stacked decode cache, ``k``/``v`` ``[L, B, KV, S, dh]``; from
+    ``gqa_full``, one layer's ``[B, S, KV, dh]``."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+def causal_mask(sq: int, sk: int, q_offset, window: int = 0, device=None):
+    """``[1, 1, sq, sk]`` bool; query i attends to key j <= i + q_offset
+    (and j > i + q_offset - window)."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    kj = torch.arange(sk, device=device)[None, :]
+    m = kj <= qi
+    if window:
+        m &= kj > qi - window
+    return m[None, None]
 
 
 def gqa_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
@@ -51,6 +69,21 @@ def gqa_qkv(p, x, positions, cfg, *, rope: bool = True):
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
     return q, k, v
+
+
+def gqa_full(p, x, cfg, *, causal: bool = True, rope: bool = True,
+             window: int = 0):
+    """Train/prefill: full-sequence attention.  Returns ``(out, KVCache)``
+    with the cache's k/v ``[B, S, KV, dh]``.  As in the JAX package's
+    naive branch, the window applies to causal attention only."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    q, k, v = gqa_qkv(p, x, positions, cfg, rope=rope)
+    out = flash_ops.flash_attention(q, k, v, causal=causal,
+                                    window=window if causal else 0)
+    out = L.linear(p["wo"], out.reshape(B, S, -1))
+    return out, KVCache(k=k, v=v)
 
 
 def gqa_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,

@@ -1,8 +1,8 @@
-"""Dense (GQA) transformer block, pre-norm residual, decode mode.
+"""Dense (GQA) transformer block, pre-norm residual.
 
-The port of ``repro/models/blocks.py``'s ``dense_block_init`` and
-``dense_block_decode_flat``; the other block families wait for ROADMAP
-queue 1 item 12.
+The port of ``repro/models/blocks.py``'s ``dense_block_init``,
+``dense_block_full`` (train, prefill) and ``dense_block_decode_flat``;
+the other block families wait for ROADMAP queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -16,6 +16,15 @@ def dense_block_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
             "ln2": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
             "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
                                  lead)}
+
+
+def dense_block_full(p, x, cfg, *, causal: bool = True, window: int = 0):
+    """Full-sequence block.  Returns ``(x, KVCache)``."""
+    h, kv = A.gqa_full(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                       causal=causal, window=window)
+    x = x + h
+    x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, kv
 
 
 def dense_block_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,

@@ -1,6 +1,6 @@
 """Core neural layers (plain tensor functions over explicit param dicts).
 
-The port of ``repro/models/layers.py`` for the dense decode path.  Params
+The port of ``repro/models/layers.py`` for the dense family.  Params
 are nested dicts of tensors in the JAX package's layout (``x @ w`` with
 ``w`` ``[d_in, d_out]``), so ``convert.model_params`` carries a JAX
 parameter tree across leaf by leaf.  Matmuls run in the config dtype
@@ -113,3 +113,13 @@ def embed(p: dict, ids):
 
 def unembed(p: dict, x):
     return x @ p["table"].T
+
+
+def cross_entropy(logits, labels, vocab: int):
+    """Mean token cross-entropy in f32; labels < 0 are masked out."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

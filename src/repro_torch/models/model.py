@@ -1,23 +1,32 @@
-"""Model assembly for decode: the dense family of ``repro/models/model.py``.
+"""Model assembly: the dense family of ``repro/models/model.py``.
 
 API (the JAX package's, dense family):
   init_params(cfg, gen=None, device=None)        -> params dict
+  forward(params, batch, cfg, remat=False)       -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, remat=False)       -> scalar loss
+  prefill(params, batch, cfg)                    -> logits
   init_cache(cfg, bsz, s_max, device=None)       -> KVCache (zeros)
   decode_step(params, token, cache, pos, cfg)    -> (logits, cache)
   count_params(cfg)                              -> int
+``batch``: {"tokens": [B, S], "labels": [B, S]} int tensors.
 
 Params keep the JAX package's tree: ``embed``/``unembed``/``final_norm``
 and ``layers``, whose leaves carry a leading ``[L]`` layer axis.  The JAX
-package scans over that axis; here a Python loop indexes it (a view, no
-copy) and every layer writes its token into the stacked cache in place.
-The other families (moe, ssm, hybrid, encdec, vlm) and the full-sequence
-forward, loss and prefill wait for ROADMAP queue 1 item 12.
+package scans over that axis.  Here decode indexes it layer by layer (a
+view, no copy) and writes each token into the stacked cache in place; the
+full-sequence forward takes every layer at once with ``torch.unbind``,
+whose backward is one ``stack`` per leaf rather than a zero ``[L, ...]``
+gradient per layer.  ``remat=True`` wraps each layer in
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint``.  The other families (moe, ssm, hybrid, encdec, vlm)
+wait for ROADMAP queue 1 item 12.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
@@ -29,7 +38,7 @@ def _dense_only(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1 item 12); the port decodes dense models")
+            f"(ROADMAP queue 1 item 12); the port runs dense models")
 
 
 def _dense_init(gen, cfg, dtype, device):
@@ -54,6 +63,27 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The stacked ``layers`` tree as ``n`` per-layer trees (views)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _dense_block(h, p_l, cfg):
+    return B.dense_block_full(p_l, h, cfg, window=cfg.sliding_window)[0]
+
+
+def _dense_forward(p, batch, cfg, remat: bool = False):
+    x = L.embed(p["embed"], batch["tokens"])
+    for p_l in _unstack(p["layers"], cfg.n_layers):
+        x = checkpoint(_dense_block, x, p_l, cfg, use_reentrant=False) \
+            if remat else _dense_block(x, p_l, cfg)
+    return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
 
 
 def _flat_kv_zeros(cfg, bsz: int, s_max: int, layers: int, dtype, device):
@@ -82,6 +112,24 @@ def init_params(cfg, gen: torch.Generator | None = None, device=None):
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     return _dense_init(gen, cfg, L.dtype_of(cfg), device)
+
+
+def forward(params, batch, cfg, remat: bool = False):
+    """Full-sequence forward -> (logits ``[B, S, V]`` in the params'
+    dtype, aux loss f32 0)."""
+    _dense_only(cfg)
+    return _dense_forward(params, batch, cfg, remat)
+
+
+def loss_fn(params, batch, cfg, remat: bool = False):
+    logits, aux = forward(params, batch, cfg, remat)
+    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
+
+
+def prefill(params, batch, cfg):
+    """Full-sequence forward returning logits (the serving layer's paged
+    KV wiring lives in ``tiering/``)."""
+    return forward(params, batch, cfg)[0]
 
 
 def init_cache(cfg, bsz: int, s_max: int, device=None):

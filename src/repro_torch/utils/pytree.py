@@ -10,6 +10,11 @@ every leaf (the JAX package puts them under ``vmap``).  ``lane_specs``
 broadcasts one spec to B identical lanes, ``stack_specs`` stacks
 same-family specs leaf-wise, ``take_lanes`` gathers lanes, and ``bwhere``
 selects per lane.
+
+Nested parameter trees (dicts, tuples, plain dataclasses such as the
+AdamW state): ``flatten_with_path``, ``leaves``, ``unflatten`` and
+``map_leaves`` walk them in ``jax.tree_util``'s order (dict keys sorted),
+which the optimizer's sums and the checkpoint keys follow.
 """
 from __future__ import annotations
 
@@ -99,3 +104,53 @@ def scatter_drop(x, idx, val, valid):
     else:
         flat.index_fill_(0, at, val)
     return flat[:B * n].view(B, n)
+
+
+# ------------------------------------------------- nested parameter trees
+def flatten_with_path(tree, path: tuple = ()) -> list:
+    """``[(path, leaf)]`` in ``jax.tree_util``'s order: tuple and list
+    items in order (path entry ``"[i]"``), dict items by sorted key, a
+    dataclass's data fields in declaration order (entry: the field name);
+    anything else is a leaf.  The port's parameter dicts, AdamW state and
+    checkpoint trees are walked with it, so sums over leaves (the global
+    grad norm) and checkpoint keys follow the JAX package."""
+    if isinstance(tree, (tuple, list)):
+        items = [(f"[{i}]", x) for i, x in enumerate(tree)]
+    elif isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [(nm, getattr(tree, nm)) for nm in _data_fields(tree)]
+    else:
+        return [(path, tree)]
+    out = []
+    for key, sub in items:
+        out += flatten_with_path(sub, path + (key,))
+    return out
+
+
+def leaves(tree) -> list:
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def unflatten(like, new_leaves):
+    """``like``'s structure with its leaves replaced by ``new_leaves``, in
+    ``flatten_with_path`` order."""
+    it = iter(new_leaves)
+
+    def build(t):
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(
+                t, **{nm: build(getattr(t, nm)) for nm in _data_fields(t)})
+        return next(it)
+
+    return build(like)
+
+
+def map_leaves(fn, tree, *rest):
+    """``fn`` applied leaf-wise over trees of one structure."""
+    return unflatten(tree, [fn(*xs) for xs in zip(
+        leaves(tree), *(leaves(r) for r in rest))])

@@ -85,3 +85,23 @@ def paged_case(B, H, KV, dh, page, n_pp, seed, lens=None):
     if lens is None:
         lens = rng.integers(1, n_pp * page + 1, B)
     return q, k, v, tables, np.asarray(lens, np.int32)
+
+
+# (B, S, H, KV, dh, causal, window): causal and not, windowed, GQA rep 1,
+# 2 and 4, every head_dim the configs use (16 reduced, 64, 128), S below,
+# at and above the kernels' 64-row tile, ragged tails.
+FLASH_SHAPES = [(2, 40, 4, 4, 16, True, 0), (2, 40, 4, 2, 16, False, 0),
+                (1, 64, 4, 1, 64, True, 0), (2, 100, 8, 2, 64, True, 0),
+                (1, 130, 4, 4, 64, False, 0), (1, 200, 8, 2, 128, True, 0),
+                (2, 77, 8, 2, 128, False, 0), (1, 300, 4, 1, 64, True, 48),
+                (1, 257, 4, 4, 16, True, 1), (1, 96, 4, 2, 64, False, 17)]
+
+
+def flash_case(B, S, H, KV, dh, seed):
+    """(q, k, v, cotangent) f32 numpy arrays, standard normal."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    do = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    return q, k, v, do

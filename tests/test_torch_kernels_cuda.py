@@ -11,8 +11,12 @@ EWMA is op for op the same f32 arithmetic (the kernels build with
 ``-fmad=false``), and the accounting sums round once from f64 on both
 sides.  Paged attention sums in another order than the plain version:
 its output and page mass are held within 1e-5 (absolutely, relatively
-above 1; bf16 within 2e-2), and two runs must give the same bits.  This
-file imports no JAX, so it runs where the JAX package is not installed.
+above 1; bf16 within 2e-2), and two runs must give the same bits.  Flash
+attention is held to its plain version computed in f32 from the same
+inputs: f32 output within 2e-5 and gradients within 1e-4 of the largest
+entry; bf16 output within 2e-2 and gradients within 2e-2 of the largest
+entry; two backward runs give the same bits.  This file imports no JAX,
+so it runs where the JAX package is not installed.
 """
 import numpy as np
 import pytest
@@ -239,3 +243,134 @@ def test_out_of_range_indices_stay_inside_the_pools(card):
     (out, mass), (w_out, w_mass) = _paged_on_card(card, case)
     _close(out, w_out, 1e-5)
     _close(mass, w_mass, 1e-5)
+
+
+# ---------------------------------------------------------- flash attention
+from _torch_cases import FLASH_SHAPES, flash_case  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
+
+
+def _flash_on_card(card, shape, dtype):
+    """Kernel forward and backward on the card, and the plain version's
+    output and autograd gradient computed in f32 from the same (rounded)
+    inputs."""
+    B, S, H, KV, dh, causal, window = shape
+    q, k, v, do = (_t(a).to(card, dtype)
+                   for a in flash_case(B, S, H, KV, dh, sum(shape)))
+    kw = dict(causal=causal, window=window)
+    out, lse = _launches("flash_attention_fwd",
+                         lambda: fkernel.flash_attention_fwd(q, k, v, **kw))
+    grads = _launches("flash_attention_bwd",
+                      lambda: fkernel.flash_attention_bwd(q, k, v, out, lse,
+                                                          do, **kw))
+    qf, kf, vf = (x.float().clone().requires_grad_() for x in (q, k, v))
+    want = fref.flash_attention_ref(qf, kf, vf, **kw)
+    wgrads = torch.autograd.grad(want, (qf, kf, vf), do.float())
+    return (q, k, v, do), (out, lse, grads), (want.detach(), wgrads)
+
+
+def _within_of_max(got, want, tol, scale=None):
+    """max |got - want| <= tol x max |want| (or x ``scale``)."""
+    err = float((got.double() - want.double()).abs().max())
+    if scale is None:
+        scale = float(want.double().abs().max())
+    assert err <= tol * scale, err
+
+
+def _grads_within(grads, wgrads, tol):
+    """Each gradient within ``tol`` of its largest entry.  A gradient that
+    is exactly zero in the plain version (window 1: each query sees only
+    its own key, so the scores carry no gradient) is held to ``tol`` times
+    the largest entry of the three: the kernel's dS = P (dP - Delta) is
+    then a difference of two equal sums in f32."""
+    top = max(float(w.double().abs().max()) for w in wgrads)
+    for g, w in zip(grads, wgrads):
+        _within_of_max(g.float(), w, tol,
+                       None if bool(w.any()) else top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_vs_plain_f32(card, shape):
+    _, (out, lse, grads), (want, wgrads) = _flash_on_card(card, shape,
+                                                          torch.float32)
+    _within_of_max(out, want, 2e-5)
+    _grads_within(grads, wgrads, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_vs_plain_bf16(card, shape):
+    """bf16 in and out: the output within 2e-2, each gradient within 2e-2
+    of its largest entry (the bf16 tolerance of tests/test_kernels.py)."""
+    _, (out, lse, grads), (want, wgrads) = _flash_on_card(card, shape,
+                                                          torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and grads[0].dtype == torch.bfloat16
+    assert float((out.float() - want).abs().max()) <= 2e-2
+    _grads_within(grads, wgrads, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [FLASH_SHAPES[3], FLASH_SHAPES[7]])
+def test_flash_attention_lse_and_repeatable_backward(card, shape):
+    """The row log-sum-exp matches the masked scores' logsumexp, and two
+    backward runs give the same bits (no atomics)."""
+    B, S, H, KV, dh, causal, window = shape
+    (q, k, v, do), (out, lse, grads), _ = _flash_on_card(card, shape,
+                                                         torch.float32)
+    rep = H // KV
+    s = torch.einsum("bqkrd,bskd->bkrqs", q.reshape(B, S, KV, rep, dh),
+                     k) * dh ** -0.5
+    qi = torch.arange(S, device=card)[:, None]
+    kj = torch.arange(S, device=card)[None, :]
+    mask = (kj <= qi) if causal else torch.ones_like(qi - kj, dtype=bool)
+    if window:
+        mask &= kj > qi - window
+    want = torch.logsumexp(torch.where(mask, s, -1e30), dim=-1)
+    _within_of_max(lse, want.reshape(B, H, S), 1e-5)
+    again = fkernel.flash_attention_bwd(q, k, v, out, lse, do,
+                                        causal=causal, window=window)
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_flash_attention_op_routes_both_passes_through_the_kernels(card):
+    """``ops.flash_attention`` on CUDA tensors: the forward and, through
+    autograd, the backward are the kernels' (same bits as calling them),
+    one launch each."""
+    B, S, H, KV, dh = 2, 70, 8, 2, 64
+    q, k, v, do = (_t(a).to(card, torch.bfloat16)
+                   for a in flash_case(B, S, H, KV, dh, 5))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(_backend.launches)
+    out = fops.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for nm in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert _backend.launches[nm] == before.get(nm, 0) + 1
+    w_out, lse = fkernel.flash_attention_fwd(q, k, v)
+    assert torch.equal(out.detach(), w_out)
+    for g, w in zip(grads, fkernel.flash_attention_bwd(q, k, v, w_out, lse,
+                                                       do)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_inputs(card):
+    q = torch.zeros((1, 8, 4, 64), device=card)
+    with pytest.raises(ValueError):          # head_dim 32 is not built
+        fkernel.flash_attention_fwd(q[..., :32].contiguous(),
+                                    q[..., :32].contiguous(),
+                                    q[..., :32].contiguous())
+    with pytest.raises(TypeError):
+        fkernel.flash_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        fkernel.flash_attention_fwd(q, q.cpu(), q)
+    with pytest.raises(ValueError):          # H not a multiple of KV
+        fkernel.flash_attention_fwd(q, q[:, :, :3].contiguous(),
+                                    q[:, :, :3].contiguous())
+    with pytest.raises(ValueError):
+        fkernel.flash_attention_fwd(q.transpose(1, 2), q, q)
