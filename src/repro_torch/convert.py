@@ -83,16 +83,21 @@ def machine(obj, device=None) -> TieredMachineSpec:
 
 # ---------------------------------------------------------------- serving
 def model_params(params_np, cfg, device=None):
-    """The JAX parameter tree (nested dicts, numpy leaves; bf16 leaves as
-    ``ml_dtypes.bfloat16``) as the port's params in ``cfg``'s dtype.  The
-    trees have the same keys and leaf shapes (``models/model.py``)."""
-    from repro_torch.models.layers import dtype_of
+    """The JAX parameter tree of ``cfg``'s model (nested dicts, numpy
+    leaves; bf16 leaves as ``ml_dtypes.bfloat16``) as the port's params.
+    The trees have the same keys and leaf shapes (``models/model.py``),
+    and each leaf keeps its own dtype: a bf16 model's Mamba2 layers hold
+    ``A_log``, ``D`` and ``dt_bias`` in f32 (``models/mamba2.py``)."""
     device = resolve_device(device)
-    dtype = dtype_of(cfg)
 
     def leaf(x):
         if isinstance(x, dict):
             return {k: leaf(v) for k, v in x.items()}
+        name = np.asarray(x).dtype.name
+        if name not in ("bfloat16", "float32"):
+            raise TypeError(f"model_params: a {cfg.name} leaf is {name}, "
+                            f"expected bfloat16 or float32")
+        dtype = torch.bfloat16 if name == "bfloat16" else torch.float32
         return torch.from_numpy(np.array(x, np.float32)).to(device, dtype)
 
     return leaf(params_np)

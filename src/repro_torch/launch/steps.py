@@ -76,7 +76,7 @@ def make_prefill_step(cfg):
 
 
 def make_serve_step(cfg, greedy: bool = True):
-    """One decode step: embeds, L-layer stack against the KV cache,
+    """One decode step: embeds, L-layer stack against the KV/state cache,
     unembed, greedy next-token."""
 
     def serve_step(params, token, cache, pos: int):

@@ -1,12 +1,14 @@
 """End-to-end training launcher, in torch.
 
-The port of ``repro/launch/train.py`` for the dense family: config
-registry, synthetic data pipeline with prefetch, the train step (gradient
-accumulation + AdamW with an f32 master copy), async checkpointing with
-restart in the JAX store's format, preemption handling (SIGTERM ->
-checkpoint -> clean exit) and straggler monitoring (ARMS EWMA/PHT on
-per-host step times).  The attention of every layer, forward and
-backward, runs on the hand-written flash attention kernels on the card.
+The port of ``repro/launch/train.py`` for the dense and ssm families:
+config registry, synthetic data pipeline with prefetch, the train step
+(gradient accumulation + AdamW with an f32 master copy), async
+checkpointing with restart in the JAX store's format, preemption
+handling (SIGTERM -> checkpoint -> clean exit) and straggler monitoring
+(ARMS EWMA/PHT on per-host step times).  On the card, every dense
+layer's attention runs on the hand-written flash attention kernels and
+every mamba layer's SSD scan on the hand-written ``mamba_scan``
+kernels, forward and backward.
 
 Reduced configs by default; ``--full`` runs the published widths and
 depth.  Weights are random, drawn from a ``torch.Generator`` on the
@@ -15,8 +17,10 @@ bit.  Batches reach the card through pinned memory without a stream
 sync, and the loss is read on the host once a step.  The other families
 (and the encdec/vlm stub inputs) raise ``NotImplementedError``.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+      --full --steps 6 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
       --full --steps 6 --batch 2 --seq 4096
 """
 from __future__ import annotations
@@ -46,7 +50,7 @@ def setup(arch: str, n_steps: int, full: bool = False, seed: int = 0,
     cfg = registry.get_arch(arch)
     if not full:
         cfg = registry.reduced(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported "
             f"yet (ROADMAP queue 1 item 12)")

@@ -1,13 +1,15 @@
-"""Dense (GQA) transformer block, pre-norm residual.
+"""Pre-norm residual blocks: dense (GQA) and mamba.
 
 The port of ``repro/models/blocks.py``'s ``dense_block_init``,
-``dense_block_full`` (train, prefill) and ``dense_block_decode_flat``;
-the other block families wait for ROADMAP queue 1 item 12.
+``dense_block_full`` (train, prefill), ``dense_block_decode_flat`` and
+``mamba_block_init``/``mamba_block_full``/``mamba_block_decode``; the
+other block families (MoE, enc-dec) wait for ROADMAP queue 1 item 12.
 """
 from __future__ import annotations
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 
 def dense_block_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
@@ -37,3 +39,25 @@ def dense_block_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,
     x = x + h
     x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, k_st, v_st
+
+
+# -------------------------------------------------------------- mamba block
+def mamba_block_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
+    return {"ln": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
+            "mamba": M.mamba2_init(gen, cfg, dtype, device, lead)}
+
+
+def mamba_block_full(p, x, cfg):
+    """Full-sequence block.  Returns ``(x, MambaCache)``."""
+    h, cache = M.mamba2_full(p["mamba"], L.rmsnorm(p["ln"], x, cfg.norm_eps),
+                             cfg)
+    return x + h, cache
+
+
+def mamba_block_decode(p, x, cache, cfg):
+    """One-token block against one layer's ``MambaCache``.  Returns
+    ``(x, MambaCache)``."""
+    h, cache = M.mamba2_decode(p["mamba"],
+                               L.rmsnorm(p["ln"], x, cfg.norm_eps), cache,
+                               cfg)
+    return x + h, cache

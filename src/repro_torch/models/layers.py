@@ -1,9 +1,9 @@
 """Core neural layers (plain tensor functions over explicit param dicts).
 
-The port of ``repro/models/layers.py`` for the dense family.  Params
-are nested dicts of tensors in the JAX package's layout (``x @ w`` with
-``w`` ``[d_in, d_out]``), so ``convert.model_params`` carries a JAX
-parameter tree across leaf by leaf.  Matmuls run in the config dtype
+The port of ``repro/models/layers.py`` for the dense and ssm families.
+Params are nested dicts of tensors in the JAX package's layout (``x @
+w`` with ``w`` ``[d_in, d_out]``), so ``convert.model_params`` carries a
+JAX parameter tree across leaf by leaf.  Matmuls run in the config dtype
 (bf16 at full width); normalization statistics, RoPE angles and the
 softmax run in f32.  Inits draw from an explicit ``torch.Generator`` and
 cannot reproduce ``jax.random``'s bits.

@@ -105,3 +105,30 @@ def flash_case(B, S, H, KV, dh, seed):
     v = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
     do = rng.standard_normal((B, S, H, dh)).astype(np.float32)
     return q, k, v, do
+
+
+# (B, S, H, P, N, Q): the shapes of tests/test_kernels.py's mamba scan
+# test and reduced mamba2-370m's scan (32 tokens, 4 heads of 32, N 16,
+# chunk 8).
+MAMBA_SHAPES = [(2, 128, 3, 16, 32, 32), (1, 64, 2, 64, 128, 16),
+                (3, 256, 1, 32, 64, 64), (2, 32, 4, 32, 16, 8)]
+# mamba2-370m's scan at the training path's batch 2 x 4,096 tokens.
+MAMBA_TRAIN_SHAPE = (2, 4096, 32, 64, 128, 64)
+
+
+def mamba_case(B, S, H, P, N, seed, model_like=False):
+    """(x, dt, A, Bm, Cm, dy, dh_final) f32 numpy arrays.  x, Bm, Cm and
+    the cotangents standard normal; dt uniform in [0.1, 0.9] and A in
+    -[0.5, 2] as tests/test_kernels.py draws them, or with ``model_like``
+    as mamba2-370m's init gives them: dt = softplus(N(0, 1)) and
+    A = -linspace(1, 16, H)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    x, Bm, Cm = f(B, S, H, P), f(B, S, N), f(B, S, N)
+    if model_like:
+        dt = np.logaddexp(f(B, S, H), 0).astype(np.float32)
+        A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    else:
+        dt = rng.uniform(0.1, 0.9, (B, S, H)).astype(np.float32)
+        A = -rng.uniform(0.5, 2.0, (H,)).astype(np.float32)
+    return x, dt, A, Bm, Cm, f(B, S, H, P), f(B, H, P, N)

@@ -15,8 +15,11 @@ above 1; bf16 within 2e-2), and two runs must give the same bits.  Flash
 attention is held to its plain version computed in f32 from the same
 inputs: f32 output within 2e-5 and gradients within 1e-4 of the largest
 entry; bf16 output within 2e-2 and gradients within 2e-2 of the largest
-entry; two backward runs give the same bits.  This file imports no JAX,
-so it runs where the JAX package is not installed.
+entry; two backward runs give the same bits.  The Mamba2 scan likewise,
+forward and backward, at the JAX test's shapes, reduced mamba2-370m's and
+the training shape (tolerances in its tests: the cumsum's rounding
+through ``exp``).  This file imports no JAX, so it runs where the JAX
+package is not installed.
 """
 import numpy as np
 import pytest
@@ -374,3 +377,146 @@ def test_flash_attention_rejects_bad_inputs(card):
                                     q[:, :, :3].contiguous())
     with pytest.raises(ValueError):
         fkernel.flash_attention_fwd(q.transpose(1, 2), q, q)
+
+
+# --------------------------------------------------------------- mamba scan
+from _torch_cases import MAMBA_SHAPES, MAMBA_TRAIN_SHAPE  # noqa: E402
+from _torch_cases import mamba_case  # noqa: E402
+from repro_torch.kernels.mamba_scan import kernel as skernel  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ref as sref  # noqa: E402
+
+
+def _cs_ulp(dt, A, Q) -> float:
+    """One f32 ulp of the largest chunk cumsum of dt * A: the kernel sums
+    it in f64 (as the CPU's ``torch.cumsum`` does), the plain version on
+    the card with ``torch.cumsum`` in f32, and ``exp`` turns that
+    last-ulp difference of a decay exponent into a relative error of the
+    decay."""
+    B, S, H = dt.shape
+    cs = torch.cumsum((dt * A).double().reshape(B, S // Q, Q, H), dim=2)
+    return float(np.spacing(np.float32(cs.abs().max().item())))
+
+
+def _scan_on_card(card, shape, dtype, model_like=False):
+    """The kernels' forward and backward (cotangents of y and h_final) on
+    the card, and the plain version's outputs and autograd gradients in
+    f32 from the same (rounded) inputs."""
+    B, S, H, P, N, Q = shape
+    x, dt, A, Bm, Cm, dy, dh = mamba_case(B, S, H, P, N, sum(shape),
+                                          model_like)
+    x, dy = _t(x).to(card, dtype), _t(dy).to(card, dtype)
+    dt, A, Bm, Cm, dh = (_t(a).to(card) for a in (dt, A, Bm, Cm, dh))
+    y, h = _launches("mamba_scan_fwd", lambda: skernel.mamba_scan_fwd(
+        x, dt, A, Bm, Cm, chunk=Q))
+    grads = _launches("mamba_scan_bwd", lambda: skernel.mamba_scan_bwd(
+        x, dt, A, Bm, Cm, dy, dh, chunk=Q))
+    leaves = [a.float().clone().requires_grad_() for a in (x, dt, A, Bm,
+                                                           Cm)]
+    wy, wh = sref.mamba_scan_ref(*leaves, Q)
+    wgrads = torch.autograd.grad((wy, wh), leaves, (dy.float(), dh))
+    return (x, dt, A, Bm, Cm, dy, dh), (y, h, grads), \
+        (wy.detach(), wh.detach(), wgrads), _cs_ulp(dt, A, Q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MAMBA_SHAPES + [MAMBA_TRAIN_SHAPE])
+def test_mamba_scan_kernel_vs_plain_f32(card, shape):
+    """y and h_final within 2e-5 + 4 ulp(max |cs|) of their largest
+    entries, each gradient within 1e-4 + 8 ulp(max |cs|) of its largest
+    entry (sums over chunks, heads and positions in another order; dA
+    sums all B x S of them).  The training shape draws dt and A as
+    mamba2-370m's init gives them."""
+    model_like = shape == MAMBA_TRAIN_SHAPE
+    _, (y, h, grads), (wy, wh, wgrads), ulp = _scan_on_card(
+        card, shape, torch.float32, model_like)
+    _within_of_max(y, wy, 2e-5 + 4 * ulp)
+    _within_of_max(h, wh, 2e-5 + 4 * ulp)
+    for g, w in zip(grads, wgrads):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _within_of_max(g, w, 1e-4 + 8 * ulp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MAMBA_SHAPES)
+def test_mamba_scan_kernel_vs_plain_bf16(card, shape):
+    """bf16 x, y, dy and dx (the rest f32): y within 2e-2 absolutely and
+    relatively (the bf16 tolerance of tests/test_kernels.py), each
+    gradient within 2e-2 of its largest entry."""
+    _, (y, h, grads), (wy, wh, wgrads), ulp = _scan_on_card(
+        card, shape, torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and grads[0].dtype == torch.bfloat16
+    assert bool(((y.float() - wy).abs() <= 2e-2 + 2e-2 * wy.abs()).all())
+    _within_of_max(h, wh, 2e-5 + 4 * ulp)
+    for g, w in zip(grads, wgrads):
+        _within_of_max(g.float(), w, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [MAMBA_SHAPES[0], MAMBA_TRAIN_SHAPE])
+def test_mamba_scan_backward_is_repeatable(card, shape):
+    """Two backward runs (and two forward runs) give the same bits: no
+    atomics, every sum in a fixed order."""
+    B, S, H, P, N, Q = shape
+    x, dt, A, Bm, Cm, dy, _ = (_t(a).to(card) for a in mamba_case(
+        B, S, H, P, N, 1, model_like=True))
+    a = skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=Q)
+    b = skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=Q)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert all(torch.equal(u, v) for u, v in zip(
+        skernel.mamba_scan_fwd(x, dt, A, Bm, Cm, chunk=Q),
+        skernel.mamba_scan_fwd(x, dt, A, Bm, Cm, chunk=Q)))
+
+
+@pytest.mark.cuda
+def test_mamba_scan_op_routes_both_passes_through_the_kernels(card):
+    """``ops.mamba_scan`` on CUDA tensors: the forward and, through
+    autograd, the backward are the kernels' (same bits as calling them),
+    one launch each; an unused h_final sends no cotangent (the kernel's
+    zero)."""
+    B, S, H, P, N, Q = MAMBA_SHAPES[3]
+    x, dt, A, Bm, Cm, dy, _ = (_t(a).to(card) for a in mamba_case(
+        B, S, H, P, N, 7))
+    leaves = [a.clone().requires_grad_() for a in (x, dt, A, Bm, Cm)]
+    before = dict(_backend.launches)
+    y, _ = sops.mamba_scan(*leaves, chunk=Q)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    for nm in ("mamba_scan_fwd", "mamba_scan_bwd"):
+        assert _backend.launches[nm] == before.get(nm, 0) + 1
+    assert torch.equal(y.detach(), skernel.mamba_scan_fwd(
+        x, dt, A, Bm, Cm, chunk=Q)[0])
+    for g, w in zip(grads, skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy,
+                                                  chunk=Q)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_rejects_bad_inputs(card):
+    x, dt, A, Bm, Cm, dy, _ = (_t(a).to(card) for a in mamba_case(
+        1, 16, 2, 8, 4, 0))
+    fwd = skernel.mamba_scan_fwd
+    with pytest.raises(ValueError):          # on the CPU
+        fwd(x.cpu(), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):
+        fwd(x, dt, A.cpu(), Bm, Cm, chunk=8)
+    with pytest.raises(TypeError):           # f64 x
+        fwd(x.double(), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):          # bf16 dt
+        fwd(x, dt.bfloat16(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):          # S not a multiple of the chunk
+        fwd(x, dt, A, Bm, Cm, chunk=5)
+    with pytest.raises(ValueError):          # dt of another length
+        fwd(x, dt[:, :8].contiguous(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):          # non-contiguous x
+        fwd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm,
+            chunk=8)
+    with pytest.raises(ValueError):          # too much shared memory
+        big = torch.zeros((1, 128, 1, 128), device=card)
+        bc = torch.zeros((1, 128, 256), device=card)
+        fwd(big, torch.ones((1, 128, 1), device=card), A[:1], bc, bc,
+            chunk=128)
+    with pytest.raises(ValueError):          # dy of another dtype
+        skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy.bfloat16(), chunk=8)
+    with pytest.raises(ValueError):          # dh_final of another shape
+        skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy, dy, chunk=8)
