@@ -20,7 +20,10 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
      attention at pos = 511 over 32 pages with 256 folded query heads);
-     flash attention forward and backward at the training path's shape
+     the single-row fused score update at n = 2^20 and 2^24 pages (on no
+     path of the main path: its launches here must be nonzero, its JSON
+     row's are 0); flash attention forward and backward (bf16 on the
+     tensor cores, f32 on the CUDA cores) at the training path's shape
      (B = 2, S = 4,096, 32 heads of 64, bf16, causal), at granite-8b's
      GQA heads (32 over 8, dh 128, S = 2,048), windowed (1,024), and in
      f32 (B = 1, S = 1,024, 8 heads over 2), each held to the plain
@@ -105,6 +108,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as skernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ref as sref  # noqa: E402
+from repro_torch.kernels.score_update import (  # noqa: E402
+    kernel as ukernel)
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
@@ -138,6 +143,7 @@ ROUTES = {
     "flash_attention_bwd": ("flash_attention", "flash_attention/kernel.py:73"),
     "mamba_scan_fwd": ("mamba_scan", "mamba_scan/kernel.py:75"),
     "mamba_scan_bwd": ("mamba_scan", "mamba_scan/kernel.py:75"),
+    "score_update": ("interval_step", "score_update/kernel.py:37"),
 }
 KERNELS = tuple(ROUTES)
 BUILDS = (kernel.SOURCE, mkernel.SOURCE, pkernel.SOURCE, fkernel.SOURCE,
@@ -315,9 +321,43 @@ def kernel_phase(dev, rng):
               nbytes(mach.lat_ns, mach.bw_read, mach.bw_write, mach.mlp,
                      *args[1:6]) + 6 * B * 4, (2 * R + 1) * B * N)
     serving_rows(entry, f, rng)
+    score_rows(rows, entry, f, rng)
     flash_rows(rows, rng)
     mamba_rows(rows, rng)
     return rows
+
+
+# score_update at benchmarks/framework.py's size and at framework scale
+# ("millions of pages", score_update/kernel.py:3-5)
+SCORE_PAGES = (2 ** 20, 2 ** 24)
+
+
+def score_update_plain(ewma_s, ewma_l, counts, params):
+    """The plain version: one lane of ``ewma_score_update_ref``."""
+    return tuple(o[0] for o in ref.ewma_score_update_ref(
+        ewma_s[None], ewma_l[None], counts[None], params[None]))
+
+
+def score_rows(rows, entry, f, rng):
+    """The single-row fused score update (one lane of the interval step's
+    EWMA kernel), held to its plain version bit for bit in all three
+    outputs.  It is on no path of the main path (the
+    classifier runs ``ewma_update``), so its JSON row's ``launches`` is 0;
+    its launches here, in the kernel phase, must be nonzero."""
+    before = _backend.launches["score_update"]
+    for n in SCORE_PAGES:
+        args = (f(rng.random(n, dtype=np.float32) * 100),
+                f(rng.random(n, dtype=np.float32) * 100),
+                f(rng.poisson(3, n).astype(np.float32)),
+                f(np.array([0.7, 0.1, 0.2, 0.8], np.float32)))
+        entry("score_update", f"n={n}", ukernel.score_update,
+              score_update_plain, args, True, 24 * n, 9 * n)
+        del args
+    launched = _backend.launches["score_update"] - before
+    require(launched > 0, "score_update: no launch in the kernel phase")
+    rows["score_update"]["kernel_phase_launches"] = launched
+    print(f"kernel score_update: {launched} launches in the kernel phase, "
+          f"on no path of the main path", flush=True)
 
 
 # the serving path at granite-8b's full width: 32 pages of 16 tokens x 8
@@ -400,6 +440,8 @@ FLASH_ROWS = [
     ("GQA: granite-8b heads", 2, 2048, 32, 8, 128, True, 0, torch.bfloat16),
     ("windowed", 2, 4096, 32, 32, 64, True, 1024, torch.bfloat16),
     ("f32", 1, 1024, 8, 2, 64, True, 0, torch.float32)]
+# bf16 rows: the largest error of one output row over that row's norm
+FLASH_ROW_REL = 1e-2
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -434,8 +476,11 @@ def flash_rows(rows, rng):
     """Kernel rows of flash attention, forward and backward apart.  The
     check is against the plain version computed in f32 from the same
     inputs: bf16 out within 2e-2 and gradients within 2e-2 of each
-    tensor's largest entry; f32 within 2e-5 (out) and 1e-4 (gradients) of
-    the largest entry; two backward runs give the same bits.  The bound
+    tensor's largest entry, and each output row (over dh) within
+    ``FLASH_ROW_REL`` of its own norm, so a fault confined to the long
+    rows, whose outputs are small, shows; f32 within 2e-5 (out) and 1e-4
+    (gradients) of the largest entry; two backward runs give the same
+    bits.  The bound
     takes the bf16 tensor-core rate for bf16 rows and the f32 rate for
     f32 rows.  Plain and library times: the plain version and
     ``scaled_dot_product_attention`` on the same inputs, for the backward
@@ -457,6 +502,13 @@ def flash_rows(rows, rng):
             else float(w_out.abs().max())
         require(err_out <= tol_out * scale_out,
                 f"flash_attention_fwd {label}: error {err_out}")
+        if dt == torch.bfloat16:
+            row_rel = float(((out.float() - w_out).norm(dim=-1)
+                             / w_out.norm(dim=-1).clamp_min(1e-30)).max())
+            print(f"flash_attention_fwd {label}: largest row error "
+                  f"{row_rel:.5f} of the row's norm", flush=True)
+            require(row_rel <= FLASH_ROW_REL, f"flash_attention_fwd {label}"
+                    f": a row's error is {row_rel} of its norm")
         err_grad = 0.0
         for nm, g, w in zip(("dq", "dk", "dv"), grads, w_grads):
             e = float((g.float() - w).abs().max())
@@ -1301,7 +1353,7 @@ def main():
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     t0 = time.time()
-    with ThreadPoolExecutor(len(BUILDS)) as pool:   # one nvcc per source
+    with ThreadPoolExecutor(len(BUILDS)) as pool:   # one nvcc a source
         list(pool.map(_backend.build, BUILDS))
     print(f"build: {time.time() - t0:.2f}s", flush=True)
 
@@ -1315,6 +1367,7 @@ def main():
     train_check(args.seed)
     ssm_decode_check(args.seed)
 
+    print(f"wall: {time.time() - t0:.1f}s from the build's start", flush=True)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,19 +15,32 @@
 //
 // Bound: operations.  At the training shape (S = 4,096, dh = 64) a causal
 // forward does about S / 2 multiply-adds per element it reads, far above
-// the card's 295 flops a byte.  This first version runs the products in
-// f32 on the CUDA cores from f32 tiles in shared memory (bf16 inputs are
-// widened on load), as the TPU kernel casts q, k and v to f32 before both
-// products: simple and exact to f32 rounding, several times slower than
-// the tensor cores' bf16 rate (wgmma, TMA and warp specialisation are later
-// work).  Every tile is 64 x 64; a block of 256 threads is a 16 x 16 grid,
-// thread (ty, tx) owning rows ty + 16 i and columns tx + 16 j (i, j < 4) of
-// a score tile.  Shared-memory rows are dh + 1 floats long (odd), so the 16
-// column threads of a half-warp read 16 distinct banks and the two row
-// groups of a warp read broadcast words.  The multiply-adds are explicit
-// fmaf (the library builds with -fmad=false).
+// the card's 295 flops a byte.  Two routes, by dtype:
 //
-//   1. fa_fwd: one block per (query tile, sequence x query head), the
+//   * bf16 (the training path): every product on the tensor cores, as
+//     wgmma with bf16 operands and f32 accumulators, tiles brought in by
+//     TMA into a two-stage ring guarded by mbarriers (the design is noted
+//     above the kernels, below).  P and dS are rounded to bf16 before the
+//     products that take them (P V; P^T dO, dS^T Q, dS K), as
+//     FlashAttention does: the output is not exact to f32 rounding.  The
+//     TPU kernel's f32 dots at default precision are themselves bf16
+//     passes on the MXU; the bf16 card rows are held to the plain version
+//     in f32 within 2e-2.
+//   * f32: the products in f32 on the CUDA cores from f32 tiles in shared
+//     memory, exact to f32 rounding, as the TPU kernel casts q, k and v to
+//     f32 before both products.  The card-vs-CPU train checks and the f32
+//     card tests hold this route to 1e-5 against the CPU's f32 products,
+//     which a bf16 pass could not meet, so it keeps the CUDA cores.  Every
+//     tile is 64 x 64; a block of 256 threads is a 16 x 16 grid, thread
+//     (ty, tx) owning rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
+//     score tile.  Shared-memory rows are dh + 1 floats long (odd), so the
+//     16 column threads of a half-warp read 16 distinct banks.  The
+//     multiply-adds are explicit fmaf (the library builds with
+//     -fmad=false).
+//
+// Both routes run the same four steps:
+//
+//   1. forward: one block per (query tile, sequence x query head), the
 //      longest causal rows scheduled first.  It walks the key tiles that
 //      hold a valid key (tiles wholly above the diagonal or wholly left of
 //      the window are skipped, as pl.when(run) skips them), keeps the
@@ -35,17 +48,19 @@
 //      out = acc / max(l, 1e-30) and the row log-sum-exp lse = m + log(l)
 //      [B, H, S] f32 for the backward.
 //   2. fa_delta: Delta = rowsum(dO * O) [B, H, S] f32, one warp per row.
-//   3. fa_bwd_dkdv: one block per (key tile, sequence x KV head).  It loops
-//      over the rep query heads of the group and the query tiles that see
-//      the tile, recomputes P = exp(s - lse) and dP = dO V^T, forms
+//   3. dK/dV: one block per (key tile, sequence x KV head).  It loops over
+//      the rep query heads of the group and the query tiles that see the
+//      tile, recomputes P = exp(s - lse) and dP = dO V^T, forms
 //      dS = P (dP - Delta), and sums dV += P^T dO, dK += dS^T Q in
 //      registers.
-//   4. fa_bwd_dq: one block per (query tile, sequence x query head); it
-//      walks the same key tiles as the forward and sums dQ += dS K.
+//   4. dQ: one block per (query tile, sequence x query head); it walks the
+//      same key tiles as the forward and sums dQ += dS K.
 //
 // Every output element has one writer and every sum runs in a fixed order:
 // no atomics, so two runs give the same bits.
 
+#include <cuda.h>   // CUtensorMap and its enums only: the encoder is looked
+                     // up at run time (tensor_map, below), so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,14 +73,6 @@
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // max / sum over the 16 lanes of a half-warp (one score row's threads)
@@ -105,14 +112,15 @@ __device__ __forceinline__ void query_tiles(int k0, int S, int causal,
 
 // Rows [s0, s0 + 64) of head h of x [B, S, NH, DH] into sm [64][DH + 1] as
 // f32; rows at or past S are zero.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* sm, const T* __restrict__ x,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* sm,
+                                          const float* __restrict__ x,
                                           int b, int s0, int h, int S,
                                           int NH) {
   for (int e = threadIdx.x; e < FA_TILE * DH; e += blockDim.x) {
     const int r = e / DH, d = e % DH, s = s0 + r;
     sm[r * (DH + 1) + d] =
-        s < S ? to_f(x[(((int64_t)b * S + s) * NH + h) * DH + d]) : 0.0f;
+        s < S ? x[(((int64_t)b * S + s) * NH + h) * DH + d] : 0.0f;
   }
 }
 
@@ -139,11 +147,13 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
   }
 }
 
+// ========================================== f32: CUDA cores, exact products
+
 // ------------------------------------------------------------------ forward
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(FA_THREADS)
-    fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
+    fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, int S, int H, int KV, int causal,
            int window, float scale) {
   constexpr int LD = DH + 1, NC = DH / 16;
@@ -156,7 +166,7 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int b = blockIdx.y / H, h = blockIdx.y % H, g = h / (H / KV);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, DH>(Qs, q, b, q0, h, S, H);
+  load_tile<DH>(Qs, q, b, q0, h, S, H);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -170,8 +180,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * FA_TILE;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DH>(Ks, k, b, k0, g, S, KV);
-    load_tile<T, DH>(Vs, v, b, k0, g, S, KV);
+    load_tile<DH>(Ks, k, b, k0, g, S, KV);
+    load_tile<DH>(Vs, v, b, k0, g, S, KV);
     __syncthreads();
     float s[4][4];
     tile_dot<DH>(Qs, Ks, ty, tx, s);
@@ -221,9 +231,9 @@ __global__ void __launch_bounds__(FA_THREADS)
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float L = fmaxf(l[i], 1e-30f);
-    T* row = o + (((int64_t)b * S + qi) * H + h) * DH;
+    float* row = o + (((int64_t)b * S + qi) * H + h) * DH;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c] / L);
+    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = acc[i][c] / L;
     if (tx == 0) lse[((int64_t)b * H + h) * S + qi] = m[i] + logf(l[i]);
   }
 }
@@ -274,13 +284,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     dst[t] = s0 + t < S ? src[base + s0 + t] : 0.0f;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(FA_THREADS)
-    fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+    fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int S, int H, int KV, int causal,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int S, int H, int KV, int causal,
                 int window, float scale) {
   constexpr int LD = DH + 1, NC = DH / 16;
   extern __shared__ float sm[];
@@ -296,8 +306,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int b = blockIdx.y / KV, g = blockIdx.y % KV, rep = H / KV;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, DH>(Ks, k, b, k0, g, S, KV);
-  load_tile<T, DH>(Vs, v, b, k0, g, S, KV);
+  load_tile<DH>(Ks, k, b, k0, g, S, KV);
+  load_tile<DH>(Vs, v, b, k0, g, S, KV);
   float dk_acc[4][NC], dv_acc[4][NC];   // keys ty + 16 i, dims tx + 16 c
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -311,8 +321,8 @@ __global__ void __launch_bounds__(FA_THREADS)
     for (int qt = lo; qt <= hi; ++qt) {
       const int q0 = qt * FA_TILE;
       __syncthreads();
-      load_tile<T, DH>(Qs, q, b, q0, h, S, H);
-      load_tile<T, DH>(dOs, dout, b, q0, h, S, H);
+      load_tile<DH>(Qs, q, b, q0, h, S, H);
+      load_tile<DH>(dOs, dout, b, q0, h, S, H);
       load_rows(lse_s, lse, row_base, q0, S);
       load_rows(dl_s, delta, row_base, q0, S);
       __syncthreads();
@@ -358,18 +368,18 @@ __global__ void __launch_bounds__(FA_THREADS)
     const int64_t at = (((int64_t)b * S + kj) * KV + g) * DH;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[at + tx + 16 * c] = from_f<T>(dk_acc[i][c] * scale);
-      dv[at + tx + 16 * c] = from_f<T>(dv_acc[i][c]);
+      dk[at + tx + 16 * c] = dk_acc[i][c] * scale;
+      dv[at + tx + 16 * c] = dv_acc[i][c];
     }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(FA_THREADS)
-    fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int S, int H, int KV, int causal,
+              float* __restrict__ dq, int S, int H, int KV, int causal,
               int window, float scale) {
   constexpr int LD = DH + 1, NC = DH / 16;
   extern __shared__ float sm[];
@@ -385,8 +395,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t row_base = ((int64_t)b * H + h) * S;
 
-  load_tile<T, DH>(Qs, q, b, q0, h, S, H);
-  load_tile<T, DH>(dOs, dout, b, q0, h, S, H);
+  load_tile<DH>(Qs, q, b, q0, h, S, H);
+  load_tile<DH>(dOs, dout, b, q0, h, S, H);
   load_rows(lse_s, lse, row_base, q0, S);
   load_rows(dl_s, delta, row_base, q0, S);
   float dq_acc[4][NC];   // queries ty + 16 i, dims tx + 16 c
@@ -399,8 +409,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * FA_TILE;
     __syncthreads();
-    load_tile<T, DH>(Ks, k, b, k0, g, S, KV);
-    load_tile<T, DH>(Vs, v, b, k0, g, S, KV);
+    load_tile<DH>(Ks, k, b, k0, g, S, KV);
+    load_tile<DH>(Vs, v, b, k0, g, S, KV);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dot<DH>(Qs, Ks, ty, tx, s);
@@ -430,10 +440,666 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
-    T* row = dq + (((int64_t)b * S + qi) * H + h) * DH;
+    float* row = dq + (((int64_t)b * S + qi) * H + h) * DH;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      row[tx + 16 * c] = from_f<T>(dq_acc[i][c] * scale);
+      row[tx + 16 * c] = dq_acc[i][c] * scale;
+  }
+}
+
+// ===================================================== bf16: tensor cores
+//
+// Shapes: a block is one warpgroup (128 threads); its products are
+// wgmma.m64nNk16 with f32 accumulators, 64 rows a product (BM = 64 query
+// or key rows), key and query tiles of BN = 64.  Every tile of q, k, v or
+// dO is 64 rows x dh bf16, brought into shared memory by TMA from a 4-d
+// tensor map over [B, S, heads, dh] (a ragged last tile is zero-filled by
+// the hardware) in the swizzled layout wgmma reads: 128-byte swizzle in
+// regions of 64 columns (dh 64: one region, dh 128: two), 32-byte swizzle
+// for dh = 16.  The same tile is a K-major operand (rows x dh, for S = Q K^T
+// and dP = dO V^T) or, read through an MN-major descriptor (trans-b), the
+// B operand [rows, dh] of P V, P^T dO, dS^T Q and dS K.  P and dS never
+// leave registers: a 64 x 64 f32 accumulator of wgmma is, pair by pair, the
+// A fragment of the next wgmma, so each is rounded to bf16 in registers and
+// fed as the register A operand.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase after `parity` to complete.  A wait that outlasts
+// about ten seconds traps (the launch fails) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// One TMA box (cols x 1 x 64 x 1) of a [B, S, heads, dh] map into dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int head,
+                                         int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(head), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// After wg_wait: later reads of an accumulator or A fragment depend on this
+// (ordered) statement, so none is hoisted above the wait.
+template <int N>
+__device__ __forceinline__ void keep(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_half(uint32_t x, int hi) {
+  return __uint_as_float(hi ? (x & 0xffff0000u) : (x << 16));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (four bf16 pairs a
+// thread), B MN-major in shared memory (trans-b).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] B[16 x 16], A in registers (four bf16 pairs a
+// thread), B MN-major in shared memory (trans-b).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n16(d, a, db);
+}
+
+namespace tc {
+constexpr int BM = 64, BN = 64, THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+template <int DH>
+struct Tile {
+  static constexpr int SW = DH == 16 ? 32 : 128;  // bytes of a region row
+  static constexpr int COLS = SW / 2;              // bf16 columns a region
+  static constexpr int NREG = DH / COLS;           // regions a tile
+  static constexpr int RB = BM * SW;               // bytes a region
+  static constexpr int TB = NREG * RB;             // bytes a tile
+  static constexpr int NACC = COLS / 2;            // floats of a 64 x COLS acc
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 3;  // B128 / B32
+};
+
+// wgmma shared-memory descriptor of the operand at addr: 8-row groups
+// 8 * SW bytes apart (the stride byte offset; the leading byte offset, which
+// no operand here uses, is set alike), swizzle of the tile's regions.
+template <int DH>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  using T = Tile<DH>;
+  constexpr uint64_t stride = (8 * T::SW) >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (stride << 16) | (stride << 32) |
+         (T::LAYOUT << 62);
+}
+// K-major operand: all 64 rows, columns [16 kk, 16 kk + 16) of the tile.
+template <int DH>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  using T = Tile<DH>;
+  return desc<DH>(tile + (16 * kk / T::COLS) * T::RB + (16 * kk % T::COLS) * 2);
+}
+// MN-major (trans-b) operand: rows [16 kk, 16 kk + 16), region r's columns.
+template <int DH>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int r, int kk) {
+  using T = Tile<DH>;
+  return desc<DH>(tile + r * T::RB + kk * 16 * T::SW);
+}
+
+// Rows [row, row + 64) of head `head` of sequence b, every region.
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int head, int row,
+                                          int b) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int r = 0; r < T::NREG; ++r)
+    tma_load(dst + r * T::RB, map, bar, r * T::COLS, head, row, b);
+}
+
+// Accumulator element j of a 64 x N wgmma product: its row (0 or 8 past the
+// thread's first) and column.
+__device__ __forceinline__ int acc_row8(int j) { return ((j >> 1) & 1) * 8; }
+__device__ __forceinline__ int acc_col(int j, int lane) {
+  return 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+}
+
+// The 64 x 64 (query tile at q0, key tile at k0) block needs no mask.
+__device__ __forceinline__ bool unmasked(int q0, int k0, int S, int causal,
+                                         int window) {
+  return k0 + BN <= S && q0 + BM <= S && (!causal || k0 + BN - 1 <= q0) &&
+         (window <= 0 || k0 > q0 + BM - 1 - window);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+}  // namespace tc
+
+// ------------------------------------------------------- forward (wgmma)
+// One block per (query tile, sequence x query head), longest causal rows
+// first.  Q arrives once; K and V tiles through a two-stage ring: thread 0
+// starts tile t + 1's TMA into the other stage (freed by the block barrier
+// at the top of each step) before the block waits on tile t's mbarrier.
+// S = Q K^T, the masked online softmax in f32 in the log2 domain (scores
+// times dh^-0.5 log2 e), P rounded to bf16 in registers, O += P V.
+template <int DH>
+__global__ void __launch_bounds__(tc::THREADS)
+    fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+              int H, int KV, int causal, int window, float scale_log2) {
+  using T = tc::Tile<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];   // K/V stages 0 and 1, Q
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + T::TB, sV = base + 3 * T::TB;
+  const uint32_t bar0 = smem_u32(&bars[0]), bar_q = smem_u32(&bars[2]);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::BM;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, g = h / (H / KV);
+  int lo, hi;
+  key_tiles(q0, S, causal, window, lo, hi);
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(bar_q, 1);
+    mbar_fence_init();
+    mbar_expect_tx(bar_q, T::TB);
+    tc::load_tile<DH>(sQ, &tq, bar_q, h, q0, b);
+    mbar_expect_tx(bar0, 2 * T::TB);
+    tc::load_tile<DH>(sK, &tk, bar0, g, lo * tc::BN, b);
+    tc::load_tile<DH>(sV, &tv, bar0, g, lo * tc::BN, b);
+  }
+  const int row0 = 16 * warp + (lane >> 2);   // and row0 + 8
+  float acc[T::NREG][T::NACC];
+#pragma unroll
+  for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+    for (int j = 0; j < T::NACC; ++j) acc[r][j] = 0.0f;
+  float m[2] = {FA_NEG, FA_NEG}, l[2] = {0.0f, 0.0f};   // l: this thread's
+  __syncthreads();                                      // columns only
+  mbar_wait(bar_q, 0);
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int it = kt - lo, st = it & 1, k0 = kt * tc::BN;
+    __syncthreads();   // every thread is done with stage st ^ 1
+    if (tid == 0 && kt < hi) {
+      const uint32_t bar = bar0 + 8 * (st ^ 1);
+      mbar_expect_tx(bar, 2 * T::TB);
+      tc::load_tile<DH>(sK + (st ^ 1) * T::TB, &tk, bar, g, k0 + tc::BN, b);
+      tc::load_tile<DH>(sV + (st ^ 1) * T::TB, &tv, bar, g, k0 + tc::BN, b);
+    }
+    mbar_wait(bar0 + 8 * st, (it >> 1) & 1);
+    const uint32_t kst = sK + st * T::TB, vst = sV + st * T::TB;
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(s, tc::kmajor<DH>(sQ, kk), tc::kmajor<DH>(kst, kk), kk);
+    wg_commit();
+    wg_wait();
+    keep(s);
+    const bool full = tc::unmasked(q0, k0, S, causal, window);
+    float mx[2] = {FA_NEG, FA_NEG};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float x = s[j] * scale_log2;
+      if (!full && !fa_valid(q0 + row0 + tc::acc_row8(j),
+                             k0 + tc::acc_col(j, lane), S, causal, window))
+        x = __uint_as_float(0xff800000u);   // -inf
+      s[j] = x;
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], tc::quad_max(mx[i]));
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+    uint32_t pa[16];
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int i = (j >> 1) & 1;
+      const float p0 = exp2f(s[j] - m[i]), p1 = exp2f(s[j + 1] - m[i]);
+      l[i] += p0 + p1;
+      pa[j >> 1] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+      for (int j = 0; j < T::NACC; ++j) acc[r][j] *= alpha[(j >> 1) & 1];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < T::NREG; ++r)
+        wgmma_rs<T::COLS>(acc[r], &pa[4 * kk], tc::mnmajor<DH>(vst, r, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r) keep(acc[r]);
+    keep(pa);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + row0 + 8 * i;
+    const float L = tc::quad_sum(l[i]);
+    if (qi >= S) continue;
+    const float inv = 1.0f / fmaxf(L, 1e-30f);
+    __nv_bfloat16* row = o + (((int64_t)b * S + qi) * H + h) * DH;
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+      for (int j = 2 * i; j < T::NACC; j += 4)
+        *reinterpret_cast<__nv_bfloat162*>(
+            row + r * T::COLS + tc::acc_col(j, lane)) =
+            __floats2bfloat162_rn(acc[r][j] * inv, acc[r][j + 1] * inv);
+    if ((lane & 3) == 0)
+      lse[((int64_t)b * H + h) * S + qi] = m[i] * tc::LN2 + logf(L);
+  }
+}
+
+// ---------------------------------------------------- backward (wgmma)
+// One step's operands of a dK/dV block: the Q and dO tiles of query head h
+// at row q0 by TMA (thread 0), and the rows' lse (times log2 e) and Delta
+// into shared memory (threads below 64; rows past S read 0).
+template <int DH>
+__device__ __forceinline__ void dkdv_fetch(
+    int h, int q0, int b, int S, int H, uint32_t q_dst, uint32_t do_dst,
+    uint32_t bar, const CUtensorMap* tq, const CUtensorMap* tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* lse_row, float* dl_row) {
+  using T = tc::Tile<DH>;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_expect_tx(bar, 2 * T::TB);
+    tc::load_tile<DH>(q_dst, tq, bar, h, q0, b);
+    tc::load_tile<DH>(do_dst, tdo, bar, h, q0, b);
+  }
+  if (tid < tc::BM) {
+    const int64_t at = ((int64_t)b * H + h) * S + q0 + tid;
+    const bool in = q0 + tid < S;
+    lse_row[tid] = in ? lse[at] * tc::LOG2E : 0.0f;
+    dl_row[tid] = in ? delta[at] : 0.0f;
+  }
+}
+
+// dK, dV: one block per (key tile, sequence x KV head), the longest causal
+// columns first (block x = key tile).  K and V arrive once; (Q, dO) tiles
+// of the rep query heads x the query tiles that see this key tile stream
+// through a two-stage ring, and rows' lse (times log2 e) and Delta through
+// two shared rows written one step ahead.  A step computes the transposed
+// scores S^T = K Q^T (keys are the 64 rows), P^T = exp2(S^T scale log2 e -
+// lse log2 e) rounded to bf16, then dV += P^T dO together with
+// dP^T = V dO^T, then dS^T = P^T (dP^T - Delta) in bf16 and dK += dS^T Q.
+template <int DH>
+__global__ void __launch_bounds__(tc::THREADS)
+    fa_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
+                   int causal, int window, float scale, float scale_log2) {
+  using T = tc::Tile<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];   // Q/dO stages 0 and 1, K/V
+  __shared__ float lse_s[2][tc::BM], dl_s[2][tc::BM];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + T::TB, sQ = base + 2 * T::TB,
+                 sdO = base + 4 * T::TB;
+  const uint32_t bar0 = smem_u32(&bars[0]), bar_kv = smem_u32(&bars[2]);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * tc::BN;
+  const int b = blockIdx.y / KV, g = blockIdx.y % KV, rep = H / KV;
+  int lo, hi;
+  query_tiles(k0, S, causal, window, lo, hi);
+  const int nq = hi - lo + 1, steps = rep * nq;
+  // step i: query head g * rep + i / nq, query tile lo + i % nq, stage i & 1
+#define DKDV_FETCH(i)                                                        \
+  dkdv_fetch<DH>(g * rep + (i) / nq, (lo + (i) % nq) * tc::BM, b, S, H,     \
+                 sQ + ((i) & 1) * T::TB, sdO + ((i) & 1) * T::TB,          \
+                 bar0 + 8 * ((i) & 1), &tq, &tdo, lse, delta,              \
+                 lse_s[(i) & 1], dl_s[(i) & 1])
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(bar_kv, 1);
+    mbar_fence_init();
+    mbar_expect_tx(bar_kv, 2 * T::TB);
+    tc::load_tile<DH>(sK, &tk, bar_kv, g, k0, b);
+    tc::load_tile<DH>(sV, &tv, bar_kv, g, k0, b);
+  }
+  DKDV_FETCH(0);
+  const int row0 = 16 * warp + (lane >> 2);   // keys row0 and row0 + 8
+  float dk_acc[T::NREG][T::NACC], dv_acc[T::NREG][T::NACC];
+#pragma unroll
+  for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+    for (int j = 0; j < T::NACC; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.0f;
+  __syncthreads();
+  mbar_wait(bar_kv, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int st = i & 1, q0 = (lo + i % nq) * tc::BM;
+    __syncthreads();   // stage st ^ 1 is free; stage st's rows are written
+    if (i + 1 < steps) DKDV_FETCH(i + 1);
+    mbar_wait(bar0 + 8 * st, (i >> 1) & 1);
+    const uint32_t qst = sQ + st * T::TB, dost = sdO + st * T::TB;
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(s, tc::kmajor<DH>(sK, kk), tc::kmajor<DH>(qst, kk), kk);
+    wg_commit();
+    wg_wait();
+    keep(s);
+    const bool full = tc::unmasked(q0, k0, S, causal, window);
+    uint32_t pt[16];
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = tc::acc_col(j + e, lane);
+        p[e] = full || fa_valid(q0 + qc, k0 + row0 + tc::acc_row8(j), S,
+                                causal, window)
+                   ? exp2f(s[j + e] * scale_log2 - lse_s[st][qc])
+                   : 0.0f;
+      }
+      pt[j >> 1] = pack_bf16(p[0], p[1]);
+    }
+    float dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::BM / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < T::NREG; ++r)
+        wgmma_rs<T::COLS>(dv_acc[r], &pt[4 * kk],
+                          tc::mnmajor<DH>(dost, r, kk));
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(dp, tc::kmajor<DH>(sV, kk), tc::kmajor<DH>(dost, kk), kk);
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r) keep(dv_acc[r]);
+    keep(dp);
+    keep(pt);
+    uint32_t dst[16];
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        ds[e] = bf16_half(pt[j >> 1], e) *
+                (dp[j + e] - dl_s[st][tc::acc_col(j + e, lane)]);
+      dst[j >> 1] = pack_bf16(ds[0], ds[1]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::BM / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < T::NREG; ++r)
+        wgmma_rs<T::COLS>(dk_acc[r], &dst[4 * kk],
+                          tc::mnmajor<DH>(qst, r, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r) keep(dk_acc[r]);
+    keep(dst);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = k0 + row0 + 8 * i;
+    if (kj >= S) continue;
+    const int64_t at = (((int64_t)b * S + kj) * KV + g) * DH;
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+      for (int j = 2 * i; j < T::NACC; j += 4) {
+        const int c = r * T::COLS + tc::acc_col(j, lane);
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + c) =
+            __floats2bfloat162_rn(dk_acc[r][j] * scale,
+                                  dk_acc[r][j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + c) =
+            __floats2bfloat162_rn(dv_acc[r][j], dv_acc[r][j + 1]);
+      }
+  }
+}
+
+#undef DKDV_FETCH
+
+// dQ: one block per (query tile, sequence x query head), longest causal
+// rows first.  Q and dO arrive once, K and V tiles through a two-stage ring
+// as in the forward.  S = Q K^T and dP = dO V^T, dS = P (dP - Delta) with P
+// in f32, rounded to bf16 in registers, dQ += dS K.
+template <int DH>
+__global__ void __launch_bounds__(tc::THREADS)
+    fa_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int S, int H, int KV,
+                 int causal, int window, float scale, float scale_log2) {
+  using T = tc::Tile<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];   // K/V stages 0 and 1, Q/dO
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + T::TB, sK = base + 2 * T::TB,
+                 sV = base + 4 * T::TB;
+  const uint32_t bar0 = smem_u32(&bars[0]), bar_q = smem_u32(&bars[2]);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::BM;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, g = h / (H / KV);
+  int lo, hi;
+  key_tiles(q0, S, causal, window, lo, hi);
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(bar_q, 1);
+    mbar_fence_init();
+    mbar_expect_tx(bar_q, 2 * T::TB);
+    tc::load_tile<DH>(sQ, &tq, bar_q, h, q0, b);
+    tc::load_tile<DH>(sdO, &tdo, bar_q, h, q0, b);
+    mbar_expect_tx(bar0, 2 * T::TB);
+    tc::load_tile<DH>(sK, &tk, bar0, g, lo * tc::BN, b);
+    tc::load_tile<DH>(sV, &tv, bar0, g, lo * tc::BN, b);
+  }
+  const int row0 = 16 * warp + (lane >> 2);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + row0 + 8 * i;
+    const int64_t at = ((int64_t)b * H + h) * S + qi;
+    lse2[i] = qi < S ? lse[at] * tc::LOG2E : 0.0f;
+    dl[i] = qi < S ? delta[at] : 0.0f;
+  }
+  float acc[T::NREG][T::NACC];
+#pragma unroll
+  for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+    for (int j = 0; j < T::NACC; ++j) acc[r][j] = 0.0f;
+  __syncthreads();
+  mbar_wait(bar_q, 0);
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int it = kt - lo, st = it & 1, k0 = kt * tc::BN;
+    __syncthreads();
+    if (tid == 0 && kt < hi) {
+      const uint32_t bar = bar0 + 8 * (st ^ 1);
+      mbar_expect_tx(bar, 2 * T::TB);
+      tc::load_tile<DH>(sK + (st ^ 1) * T::TB, &tk, bar, g, k0 + tc::BN, b);
+      tc::load_tile<DH>(sV + (st ^ 1) * T::TB, &tv, bar, g, k0 + tc::BN, b);
+    }
+    mbar_wait(bar0 + 8 * st, (it >> 1) & 1);
+    const uint32_t kst = sK + st * T::TB, vst = sV + st * T::TB;
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(s, tc::kmajor<DH>(sQ, kk), tc::kmajor<DH>(kst, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(dp, tc::kmajor<DH>(sdO, kk), tc::kmajor<DH>(vst, kk), kk);
+    wg_commit();
+    wg_wait();
+    keep(s);
+    keep(dp);
+    const bool full = tc::unmasked(q0, k0, S, causal, window);
+    uint32_t dsf[16];
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int i = (j >> 1) & 1;
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p =
+            full || fa_valid(q0 + row0 + 8 * i, k0 + tc::acc_col(j + e, lane),
+                             S, causal, window)
+                ? exp2f(s[j + e] * scale_log2 - lse2[i])
+                : 0.0f;
+        ds[e] = p * (dp[j + e] - dl[i]);
+      }
+      dsf[j >> 1] = pack_bf16(ds[0], ds[1]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < T::NREG; ++r)
+        wgmma_rs<T::COLS>(acc[r], &dsf[4 * kk], tc::mnmajor<DH>(kst, r, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r) keep(acc[r]);
+    keep(dsf);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + row0 + 8 * i;
+    if (qi >= S) continue;
+    __nv_bfloat16* row = dq + (((int64_t)b * S + qi) * H + h) * DH;
+#pragma unroll
+    for (int r = 0; r < T::NREG; ++r)
+#pragma unroll
+      for (int j = 2 * i; j < T::NACC; j += 4)
+        *reinterpret_cast<__nv_bfloat162*>(
+            row + r * T::COLS + tc::acc_col(j, lane)) =
+            __floats2bfloat162_rn(acc[r][j] * scale, acc[r][j + 1] * scale);
   }
 }
 
@@ -451,44 +1117,151 @@ static size_t tiles_smem(int dh, int n_tiles, int n_ptiles, int n_rows) {
                           (size_t)n_rows * FA_TILE);
 }
 
-template <typename T, int DH>
-static int fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int S, int H, int KV, int causal,
-               int window, float scale, cudaStream_t stream) {
+template <int DH>
+static int fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int S, int H, int KV, int causal,
+                   int window, float scale, cudaStream_t stream) {
   const size_t smem = tiles_smem(DH, 3, 1, 0);
-  cudaError_t err = allow_smem(fa_fwd<T, DH>, smem);
+  cudaError_t err = allow_smem(fa_fwd<DH>, smem);
   if (err != cudaSuccess) return (int)err;
-  fa_fwd<T, DH><<<dim3((S + FA_TILE - 1) / FA_TILE, B * H), FA_THREADS, smem,
-                  stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-                            S, H, KV, causal, window, scale);
+  fa_fwd<DH><<<dim3((S + FA_TILE - 1) / FA_TILE, B * H), FA_THREADS, smem,
+                stream>>>((const float*)q, (const float*)k, (const float*)v,
+                          (float*)o, lse, S, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
-static int bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int S, int H, int KV, int causal,
-               int window, float scale, cudaStream_t stream) {
+static int launch_delta(const void* o, const void* dout, float* dl, int B,
+                        int S, int H, cudaStream_t stream) {
   const int64_t rows = (int64_t)B * S * H;
   fa_delta<T, DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      (const T*)o, (const T*)dout, delta, S, H, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      (const T*)o, (const T*)dout, dl, S, H, rows);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+static int bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* dl, void* dq,
+                   void* dk, void* dv, int B, int S, int H, int KV,
+                   int causal, int window, float scale,
+                   cudaStream_t stream) {
+  using T = float;
+  int e = launch_delta<T, DH>(o, dout, dl, B, S, H, stream);
+  if (e != 0) return e;
   const int n_tiles = (S + FA_TILE - 1) / FA_TILE;
   const size_t smem_kv = tiles_smem(DH, 4, 2, 2);
-  err = allow_smem(fa_bwd_dkdv<T, DH>, smem_kv);
+  cudaError_t err = allow_smem(fa_bwd_dkdv<DH>, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dkdv<T, DH><<<dim3(n_tiles, B * KV), FA_THREADS, smem_kv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+  fa_bwd_dkdv<DH><<<dim3(n_tiles, B * KV), FA_THREADS, smem_kv, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dl,
       (T*)dk, (T*)dv, S, H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem_q = tiles_smem(DH, 4, 1, 2);
-  err = allow_smem(fa_bwd_dq<T, DH>, smem_q);
+  err = allow_smem(fa_bwd_dq<DH>, smem_q);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dq<T, DH><<<dim3(n_tiles, B * H), FA_THREADS, smem_q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+  fa_bwd_dq<DH><<<dim3(n_tiles, B * H), FA_THREADS, smem_q, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dl,
       (T*)dq, S, H, KV, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    if (err == cudaSuccess && got == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// x [B, S, NH, DH] bf16 as TMA boxes of (COLS x 1 x 64 x 1): 64 rows of one
+// head, one region's columns, swizzled as wgmma reads them.
+template <int DH>
+static int tensor_map(CUtensorMap* map, const void* x, int B, int S, int NH) {
+  using T = tc::Tile<DH>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if ((uintptr_t)x & 15) return (int)cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)NH, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)NH * DH * 2,
+                                 (cuuint64_t)S * NH * DH * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::COLS, 1, (cuuint32_t)tc::BM, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+static int fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int S, int H, int KV, int causal,
+                    int window, float scale, cudaStream_t stream) {
+  using T = tc::Tile<DH>;
+  CUtensorMap mq, mk, mv;
+  int e;
+  if ((e = tensor_map<DH>(&mq, q, B, S, H)) ||
+      (e = tensor_map<DH>(&mk, k, B, S, KV)) ||
+      (e = tensor_map<DH>(&mv, v, B, S, KV)))
+    return e;
+  const size_t smem = 5 * T::TB + 1024;
+  const cudaError_t err = allow_smem(fa_fwd_tc<DH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fa_fwd_tc<DH><<<dim3((S + tc::BM - 1) / tc::BM, B * H), tc::THREADS, smem,
+                  stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse, S, H, KV,
+                            causal, window, scale * tc::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+static int bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    float* dl, void* dq, void* dk, void* dv, int B, int S,
+                    int H, int KV, int causal, int window, float scale,
+                    cudaStream_t stream) {
+  using T = tc::Tile<DH>;
+  int e = launch_delta<__nv_bfloat16, DH>(o, dout, dl, B, S, H, stream);
+  if (e != 0) return e;
+  CUtensorMap mq, mk, mv, mdo;
+  if ((e = tensor_map<DH>(&mq, q, B, S, H)) ||
+      (e = tensor_map<DH>(&mk, k, B, S, KV)) ||
+      (e = tensor_map<DH>(&mv, v, B, S, KV)) ||
+      (e = tensor_map<DH>(&mdo, dout, B, S, H)))
+    return e;
+  const int n_tiles = (S + tc::BM - 1) / tc::BM;
+  const size_t smem = 6 * T::TB + 1024;
+  cudaError_t err = allow_smem(fa_bwd_dkdv_tc<DH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fa_bwd_dkdv_tc<DH><<<dim3(n_tiles, B * KV), tc::THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, lse, dl, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H,
+      KV, causal, window, scale, scale * tc::LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(fa_bwd_dq_tc<DH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fa_bwd_dq_tc<DH><<<dim3(n_tiles, B * H), tc::THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, lse, dl, (__nv_bfloat16*)dq, S, H, KV, causal, window,
+      scale, scale * tc::LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -496,27 +1269,31 @@ static bool shape_ok(int B, int S, int H, int KV) {
   return B >= 1 && S >= 1 && KV >= 1 && H % KV == 0 && (int64_t)B * H <= 65535;
 }
 
-#define FA_DISPATCH(CALL)                                        \
-  if (dtype == 0 && dh == 16) return CALL(float, 16);            \
-  if (dtype == 0 && dh == 64) return CALL(float, 64);            \
-  if (dtype == 0 && dh == 128) return CALL(float, 128);          \
-  if (dtype == 1 && dh == 16) return CALL(__nv_bfloat16, 16);    \
-  if (dtype == 1 && dh == 64) return CALL(__nv_bfloat16, 64);    \
-  if (dtype == 1 && dh == 128) return CALL(__nv_bfloat16, 128);  \
+#define FA_DISPATCH(F32, BF16)                               \
+  if (dtype == 0 && dh == 16) return F32(16);                \
+  if (dtype == 0 && dh == 64) return F32(64);                \
+  if (dtype == 0 && dh == 128) return F32(128);              \
+  if (dtype == 1 && dh == 16) return BF16(16);               \
+  if (dtype == 1 && dh == 64) return BF16(64);               \
+  if (dtype == 1 && dh == 128) return BF16(128);             \
   return (int)cudaErrorInvalidValue;
 
 // dtype: 0 = f32, 1 = bf16; dh in {16, 64, 128}.  q/o [B, S, H, dh],
-// k/v [B, S, KV, dh], lse [B, H, S] f32, all contiguous.
+// k/v [B, S, KV, dh], lse [B, H, S] f32, all contiguous (bf16: 16-byte
+// aligned, for TMA).
 extern "C" int arms_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, float* lse,
                                         int B, int S, int H, int KV, int dh,
                                         int causal, int window, float scale,
                                         int dtype, cudaStream_t stream) {
   if (!shape_ok(B, S, H, KV)) return (int)cudaErrorInvalidValue;
-#define FA_FWD(T, D) \
-  fwd<T, D>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream)
-  FA_DISPATCH(FA_FWD)
-#undef FA_FWD
+#define FA_ARGS q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream
+#define FA_F32(D) fwd_f32<D>(FA_ARGS)
+#define FA_BF16(D) fwd_bf16<D>(FA_ARGS)
+  FA_DISPATCH(FA_F32, FA_BF16)
+#undef FA_F32
+#undef FA_BF16
+#undef FA_ARGS
 }
 
 // dout like o; delta [B, H, S] f32 scratch; dq like q, dk/dv like k.
@@ -529,9 +1306,13 @@ extern "C" int arms_flash_attention_bwd(const void* q, const void* k,
                                         float scale, int dtype,
                                         cudaStream_t stream) {
   if (!shape_ok(B, S, H, KV)) return (int)cudaErrorInvalidValue;
-#define FA_BWD(T, D)                                                      \
-  bwd<T, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, \
-            window, scale, stream)
-  FA_DISPATCH(FA_BWD)
-#undef FA_BWD
+#define FA_ARGS                                                             \
+  q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, \
+      scale, stream
+#define FA_F32(D) bwd_f32<D>(FA_ARGS)
+#define FA_BF16(D) bwd_bf16<D>(FA_ARGS)
+  FA_DISPATCH(FA_F32, FA_BF16)
+#undef FA_F32
+#undef FA_BF16
+#undef FA_ARGS
 }

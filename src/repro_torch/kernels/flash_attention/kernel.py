@@ -2,7 +2,9 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py``
 (``flash_attention_kernel``) and adds its gradient; the plain version is
-ref.py.  ``flash_attention_fwd`` launches the forward kernel and counts
+ref.py.  bf16 runs on the tensor cores (wgmma, tiles by TMA, so each bf16
+tensor must start on a 16-byte boundary), f32 on the CUDA cores.
+``flash_attention_fwd`` launches the forward kernel and counts
 ``_backend.launches["flash_attention_fwd"]``; ``flash_attention_bwd``
 launches the three backward kernels (Delta, dK/dV, dQ) and counts one
 ``flash_attention_bwd``.  The wrappers check devices, dtypes, shapes and
@@ -56,6 +58,9 @@ def _check(name, q, k, v, **more):
                              f"expected {dt} {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {nm} must start on a 16-byte "
+                             f"boundary (TMA)")
     return B, S, H, KV, dh
 
 

@@ -15,6 +15,14 @@ import torch
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
+def _dense(x):
+    """``x`` contiguous and, in bf16, on a 16-byte boundary (the kernels'
+    TMA tiles need it): a copy where it is not."""
+    x = x.contiguous()
+    return x.clone() if x.dtype == torch.bfloat16 and x.data_ptr() % 16 \
+        else x
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
@@ -28,7 +36,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = kernel.flash_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            q, k, v, out, lse, _dense(dout), causal=ctx.causal,
             window=ctx.window)
         return dq, dk, dv, None, None
 
@@ -38,8 +46,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     (``ref.flash_attention_ref``): q ``[B, S, H, dh]``, k/v
     ``[B, S, KV, dh]`` -> ``[B, S, H, dh]`` in q's dtype."""
     if q.device.type == "cuda":
-        return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal, window)
+        return _FlashAttention.apply(_dense(q), _dense(k), _dense(v),
+                                     causal, window)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")

@@ -39,10 +39,12 @@ __device__ __forceinline__ uint32_t order_key(float x) {
 }
 
 // -------------------------------------------------------------------- ewma
-// Replaces kernel.py:ewma_update_kernel (_ewma_body).  Bound: bytes, 3 rows
-// read + 3 written.  Design: one elementwise pass, grid (x over pages,
-// y over lanes) so each block reads its lane's 4 params once; consecutive
-// threads touch consecutive words.
+// Replaces kernel.py:ewma_update_kernel (_ewma_body) and, with one lane,
+// repro/kernels/score_update/kernel.py:score_update_kernel.  Bound: bytes,
+// 3 rows read + 3 written.  Design: one elementwise pass, grid (x over
+// pages, y over lanes) so each block reads its lane's 4 params once;
+// consecutive threads touch consecutive words (16-byte loads were measured
+// slower at the replay's 16 x 65,536).
 __global__ void ewma_update_kernel(const float* __restrict__ params,
                                    const float* __restrict__ s,
                                    const float* __restrict__ l,
@@ -70,8 +72,10 @@ extern "C" int arms_ewma_update(const float* params, const float* s,
                                 const float* l, const float* c, float* s_out,
                                 float* l_out, float* score_out, int B, int n,
                                 cudaStream_t stream) {
+  // a thread a page; past 16,384 blocks a lane the threads loop (a cap of
+  // 512 left the single-row score update at 2^24 pages 16 % slower)
   int gx = (n + 255) / 256;
-  if (gx > 512) gx = 512;
+  if (gx > 16384) gx = 16384;
   ewma_update_kernel<<<dim3(gx, B), 256, 0, stream>>>(params, s, l, c, s_out,
                                                       l_out, score_out, n);
   return (int)cudaGetLastError();

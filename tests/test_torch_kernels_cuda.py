@@ -14,8 +14,10 @@ its output and page mass are held within 1e-5 (absolutely, relatively
 above 1; bf16 within 2e-2), and two runs must give the same bits.  Flash
 attention is held to its plain version computed in f32 from the same
 inputs: f32 output within 2e-5 and gradients within 1e-4 of the largest
-entry; bf16 output within 2e-2 and gradients within 2e-2 of the largest
-entry; two backward runs give the same bits.  The Mamba2 scan likewise,
+entry; bf16 (on the tensor cores, P and dS rounded to bf16) output within
+2e-2 and gradients within 2e-2 of the largest entry; two backward runs
+give the same bits.  The single-row score update equals its plain version
+bit for bit.  The Mamba2 scan likewise,
 forward and backward, at the JAX test's shapes, reduced mamba2-370m's and
 the training shape (tolerances in its tests: the cumsum's rounding
 through ``exp``).  This file imports no JAX, so it runs where the JAX
@@ -98,8 +100,11 @@ def test_account_kernel_vs_plain(card, machine, B, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(1, 17), (3, 1000), (16, 65536)])
+@pytest.mark.parametrize("B,n", [(1, 17), (3, 1000), (16, 65536), (4, 1001),
+                                 (1, 4096 * 1024 + 5)])
 def test_ewma_kernel_vs_plain_bitwise(card, B, n):
+    """Bitwise at lanes on and off a 16-byte boundary (n odd), a ragged
+    tail and more pages than the grid's threads."""
     s, l, c, params = _ewma_case(B, n, n)
     params = _t(params)
     got = _launches("ewma_update", lambda: kernel.ewma_update(
@@ -377,6 +382,121 @@ def test_flash_attention_rejects_bad_inputs(card):
                                     q[:, :, :3].contiguous())
     with pytest.raises(ValueError):
         fkernel.flash_attention_fwd(q.transpose(1, 2), q, q)
+
+
+# bf16 on the tensor cores at tile edges: S around the 64-row tiles (1, 63,
+# 65, 127, 129) and the training length, every head width, GQA rep 4, a
+# 1,024 window and non-causal rows
+FLASH_TC_SHAPES = ([(2, S, 8, 2, dh, True, 0) for S in (1, 63, 65, 127, 129)
+                    for dh in (16, 64, 128)]
+                   + [(1, 4096, 4, 1, dh, True, 0) for dh in (16, 64, 128)]
+                   + [(1, 4096, 4, 1, 64, True, 1024),
+                      (1, 1500, 8, 2, 128, True, 1024),
+                      (2, 129, 8, 2, 64, False, 0),
+                      (1, 4096, 4, 1, 128, False, 0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_TC_SHAPES)
+def test_flash_attention_bf16_tile_edges(card, shape):
+    """The bf16 route (wgmma, TMA tiles zero-filled past S) within 2e-2 of
+    the plain version in f32 from the same inputs, the same bits from two
+    backward runs, and the row log-sum-exp finite on every row."""
+    B, S, H, KV, dh, causal, window = shape
+    (q, k, v, do), (out, lse, grads), (want, wgrads) = _flash_on_card(
+        card, shape, torch.bfloat16)
+    assert float((out.float() - want).abs().max()) <= 2e-2
+    _grads_within(grads, wgrads, 2e-2)
+    assert bool(torch.isfinite(lse).all())
+    again = fkernel.flash_attention_bwd(q, k, v, out, lse, do,
+                                        causal=causal, window=window)
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 128])
+def test_flash_attention_op_routes_bf16_head_widths(card, dh):
+    """``ops.flash_attention`` in bf16 at the head widths beside 64: one
+    launch of each kernel, and the kernels' own bits."""
+    B, S, H, KV = 1, 100, 8, 2
+    q, k, v, do = (_t(a).to(card, torch.bfloat16)
+                   for a in flash_case(B, S, H, KV, dh, dh))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(_backend.launches)
+    out = fops.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for nm in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert _backend.launches[nm] == before.get(nm, 0) + 1
+    w_out, lse = fkernel.flash_attention_fwd(q, k, v)
+    assert torch.equal(out.detach(), w_out)
+    for g, w in zip(grads, fkernel.flash_attention_bwd(q, k, v, w_out, lse,
+                                                       do)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_alignment(card):
+    """The TMA tiles need 16-byte aligned bf16 tensors: the wrapper refuses
+    a tensor that starts off such a boundary, the op copies it."""
+    q, k, v, _ = (_t(a).to(card, torch.bfloat16)
+                  for a in flash_case(1, 40, 4, 4, 64, 3))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=card)
+    odd = flat[1:].view(q.shape)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError):
+        fkernel.flash_attention_fwd(odd, k, v)
+    assert torch.equal(fops.flash_attention(odd, k, v),
+                       fkernel.flash_attention_fwd(q, k, v)[0])
+
+
+# ------------------------------------------------------------- score update
+from repro_torch.kernels.score_update import kernel as ukernel  # noqa: E402
+from repro_torch.kernels.score_update import ops as uops  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 17, 1000, 4099, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_score_update_kernel_vs_plain_bitwise(card, n, offset):
+    """All three outputs equal the plain version's bits (one lane of the
+    interval step's EWMA), at ragged n and on rows that start one element
+    past a 16-byte boundary."""
+    rng = np.random.default_rng(n + offset)
+    rows = [torch.from_numpy(rng.random(n + offset, dtype=np.float32) * 50)
+            for _ in range(2)]
+    rows.append(torch.from_numpy(
+        rng.poisson(3, n + offset).astype(np.float32)))
+    rows = [r.to(card)[offset:] for r in rows]
+    params = torch.tensor([0.3, 0.05, 0.6, 0.4], device=card)
+    got = _launches("score_update",
+                    lambda: ukernel.score_update(*rows, params))
+    want = [w[0] for w in ref.ewma_score_update_ref(
+        *(r[None] for r in rows), params[None])]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    via_op = uops.score_update(*rows, alpha_s=0.3, alpha_l=0.05, w_s=0.6,
+                               w_l=0.4)
+    for g, w in zip(via_op, got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_score_update_rejects_bad_inputs(card):
+    x = torch.zeros(8, device=card)
+    p = torch.zeros(4, device=card)
+    with pytest.raises(ValueError):
+        ukernel.score_update(x, x.cpu(), x, p)
+    with pytest.raises(TypeError):
+        ukernel.score_update(x.double(), x, x, p)
+    with pytest.raises(ValueError):
+        ukernel.score_update(x, x[:4], x, p)
+    with pytest.raises(ValueError):
+        ukernel.score_update(x, x, x, p[:3])
+    with pytest.raises(ValueError):
+        ukernel.score_update(x[::2], x[::2], x[::2], p)
 
 
 # --------------------------------------------------------------- mamba scan
