@@ -15,7 +15,8 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      events), beside the least time the card could take for the same
      bytes and operations and, where one exists, a PyTorch library call
      computing the same function: the interval-step kernels at 16 lanes,
-     n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans; the page
+     n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans (the top-k
+     mask also at ``arms_sim``'s one lane, a line of its own); the page
      migration and paged attention at the serving path's full-width
      shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
@@ -27,10 +28,13 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      (B = 2, S = 4,096, 32 heads of 64, bf16, causal), at granite-8b's
      GQA heads (32 over 8, dh 128, S = 2,048), windowed (1,024), and in
      f32 (B = 1, S = 1,024, 8 heads over 2), each held to the plain
-     version computed in f32 from the same inputs; the Mamba2 scan
-     forward and backward in f32 at the training path's shape (B = 2,
-     S = 4,096, 32 heads of 64, N = 128, chunk 64) and at reduced
-     mamba2-370m's, held to the plain version in f32;
+     version computed in f32 from the same inputs (the backward's lines
+     also time SDPA's backward alone, its forward outside the timed
+     region); the Mamba2 scan forward and backward in f32 at the training
+     path's shape (B = 2, S = 4,096, 32 heads of 64, N = 128, chunk 64),
+     with the device time of each pass of one backward by kernel name
+     (``torch.profiler``), and at reduced mamba2-370m's, held to the plain
+     version in f32;
   3. main path, seven paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
@@ -277,17 +281,18 @@ def kernel_phase(dev, rng):
           ref.ewma_score_update_ref, args, True,
           nbytes(*args) + 3 * 4 * B * N, 6 * B * N)
 
-    # topk_mask: hotness scores with ties and signed zeros
-    x = f((rng.integers(-4, 2000, (B, N)) * 0.5).astype(np.float32))
-    x[:, ::97] = -0.0
-
+    # topk_mask: hotness scores with ties and signed zeros, at the sweep's
+    # 16 lanes (the JSON line's shape) and at arms_sim's single lane
     def library(x, k):
-        m = torch.zeros((B, N), dtype=torch.bool, device=dev)
+        m = torch.zeros(x.shape, dtype=torch.bool, device=dev)
         return m.scatter_(1, torch.topk(x, k, dim=1).indices, True)
 
-    entry("topk_mask", f"B={B} n={N} k={K}", kernel.topk_mask,
-          ref.topk_mask_ref, (x, K), True, nbytes(x) + B * N, 5 * B * N,
-          library)
+    for lanes in (B, 1):
+        x = f((rng.integers(-4, 2000, (lanes, N)) * 0.5).astype(np.float32))
+        x[:, ::97] = -0.0
+        entry("topk_mask", f"B={lanes} n={N} k={K}", kernel.topk_mask,
+              ref.topk_mask_ref, (x, K), True, nbytes(x) + lanes * N,
+              5 * lanes * N, library)
 
     for mname in ("pmem-large", "dram-cxl-pmem"):
         spec = machines.get(mname)
@@ -472,6 +477,35 @@ def plain_flash_f32(q, k, v, do, causal, window, kv_chunk: int = 8):
     return torch.cat(outs, 2), [torch.cat(g, 2) for g in grads]
 
 
+def sdpa_bwd_ms(sets, to_bhsd, lib_fwd, reps: int = 8) -> float:
+    """Device time of ``scaled_dot_product_attention``'s backward alone:
+    each input set's forward runs once, outside the timed region, and its
+    graph is kept; CUDA events then time ``reps`` gradients cycling over
+    the sets (the host queues them ahead of the card; median of 5)."""
+    graphs = []
+    for q, k, v, do, *_ in sets:
+        q4, k4, v4, mask = to_bhsd(q, k, v)
+        leaves_ = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+        graphs.append((lib_fwd(*leaves_, mask), leaves_,
+                       do.transpose(1, 2)))
+    grad = lambda g: torch.autograd.grad(g[0], g[1], g[2],
+                                         retain_graph=True)
+    for g in graphs:
+        grad(g)
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(reps):
+            grad(graphs[i % len(graphs)])
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graphs
+    return float(np.median(times))
+
+
 def flash_rows(rows, rng):
     """Kernel rows of flash attention, forward and backward apart.  The
     check is against the plain version computed in f32 from the same
@@ -568,11 +602,14 @@ def flash_rows(rows, rng):
             ms = cuda_ms(kern, sets, reps=4)
             plain_ms = cuda_ms(plain, sets, reps=2)
             lib_ms = cuda_ms(lib, [to_bhsd(*a) for a in sets], reps=4)
+            bwd_only = "" if name == "flash_attention_fwd" else (
+                " library_bwd_only_ms="
+                f"{sdpa_bwd_ms(sets, to_bhsd, lib_fwd):.5f}")
             print(f"kernel {name} ({label}: B={B_} S={S} H={H} KV={KV} "
                   f"dh={dh} {str(dt)[6:]} causal={causal} window={window})"
                   f": max_abs_err={err} ms={ms:.5f} plain_ms={plain_ms:.5f}"
-                  f" library_ms={lib_ms:.5f} bound_ms={bms:.5f} ({by})",
-                  flush=True)
+                  f" library_ms={lib_ms:.5f}{bwd_only} bound_ms={bms:.5f} "
+                  f"({by})", flush=True)
             if name not in rows:
                 rows[name] = dict(
                     name=name, route="cuda",
@@ -613,6 +650,26 @@ def cs_ulp(dt, A, Q: int) -> float:
     B_, S, H = dt.shape
     cs = torch.cumsum((dt * A).double().reshape(B_, S // Q, Q, H), dim=2)
     return float(np.spacing(np.float32(cs.abs().max().item())))
+
+
+def scan_passes(ins, dy, Q: int, label: str, calls: int = 5):
+    """Device time of each pass of one ``mamba_scan_bwd`` call, by kernel
+    name under ``torch.profiler`` (the mean over ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
+        torch.cuda.synchronize()
+    passes = {e.key.split("(")[0].removeprefix("void "):
+              round(e.self_device_time_total / 1e3 / calls, 5)
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0 and SCAN_KERNEL.match(e.key)}
+    require(passes, "mamba_scan_bwd: the profiler saw no pass")
+    print(f"mamba_scan_bwd passes ({label}), device ms a call: "
+          f"{json.dumps(passes)} sum={sum(passes.values()):.5f}", flush=True)
 
 
 def mamba_rows(rows, rng):
@@ -669,6 +726,8 @@ def mamba_rows(rows, rng):
             yy, _ = sref.mamba_scan_ref(*leaves_, Q)
             return torch.autograd.grad(yy, leaves_, dy)
 
+        if model_like:
+            scan_passes(ins, dy, Q, label)
         ops_f, ops_b = scan_flops(B_, S, H, P, N_, Q)
         for name, kern, plain, args, bytes_, ops in (
                 ("mamba_scan_fwd",

@@ -20,13 +20,15 @@
 // operations per element.  What each design does about that is noted above
 // the kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define MAX_TIERS 8
 #define ACCOUNT_THREADS 512
 #define MIGRATE_THREADS 512
-#define TOPK_THREADS 1024
 
 static const float kPageBytes = 2097152.0f;  // PAGE_BYTES
 static const float kCacheline = 64.0f;       // CACHELINE
@@ -345,77 +347,320 @@ extern "C" int arms_tier_migrate(const int* tier, const int* promote,
 }
 
 // ---------------------------------------------------------------- top-k
-// Replaces kernel.py:topk_mask_kernel (_topk_body).  Bound: bytes — one
-// f32 row read and one bool row written per lane.  Design: radix select,
-// one block per row.  A 65,536-wide row is 256 KiB, more than a block's
-// shared memory, so the row stays in device memory (and L2) and is read
-// 5 times: 4 passes of an 8-bit shared-memory histogram over the order
-// key, each narrowing the prefix of the k-th largest key, then a pass in
-// index order that writes the mask, ranking the keys equal to the
-// threshold with a block-wide ballot scan so the lowest indices win ties.
-__global__ void topk_mask_kernel(const float* __restrict__ x,
-                                 uint8_t* __restrict__ mask, int n, int k) {
-  __shared__ unsigned int hist[256];
-  __shared__ uint32_t s_prefix;
-  __shared__ int s_remaining;
-  __shared__ int s_warp[32];
+// Replaces kernel.py:topk_mask_kernel (_topk_body).  Bound: bytes, one f32
+// row read and one bool row written per lane; in practice a fixed cost (a
+// cluster launch and some 15 barriers) and the latency of each CTA's
+// passes over its keys, so the design spreads a row over many SMs.
+// Radix select over the order key, each row on a thread-block cluster of C
+// CTAs of 1,024 threads (their registers fill an SM, so no two CTAs share
+// one; a row of one CTA takes 16 keys a thread, 256 threads at least).
+// C is the most CTAs, up to the non-portable 16 with slices of at least
+// 4,096 keys, at which the device holds all B clusters at once
+// (cudaOccupancyMaxActiveClusters): all rows in one wave.  A cluster sits
+// in one GPC, so an H100 holds 16 clusters of 6 CTAs but not of 7; a
+// single row takes 16.
+//   * The row is read from device memory once (16-byte loads where the row
+//     allows them): each CTA keeps its slice's order keys in shared memory
+//     (up to TOPK_SMEM_KEYS keys, 160 KiB beside 34 KiB of histograms, so
+//     rows up to 327,680 keys at C = 8 and 655,360 at C = 16) and runs
+//     every pass there; a longer slice streams from device memory (L2)
+//     each pass.
+//   * Four passes of an 8-bit digit narrow the prefix of the k-th largest
+//     key.  Hotness scores are heavily tied, so a warp merges equal digits
+//     (eight ballots; __match_any_sync was slower) and adds each distinct
+//     digit once to its own 256-bin histogram, so warps never contend for
+//     a bin; a warp none of whose keys still match the prefix skips the
+//     ballots.  A thread counts 4 keys an iteration, so their ballot chains
+//     overlap.  8-bit digits, not 11-bit: the warp histograms fit shared
+//     memory, and each CTA reads C x 256 remote bins a pass, not C x 2,048.
+//   * The CTAs' histograms are summed through distributed shared memory in
+//     rank order by every CTA (cluster.sync, map_shared_rank, all ranks'
+//     loads in flight at once; no global atomics), and the digit is found
+//     by a parallel suffix scan over the 256 bins, not a serial walk.  CTA
+//     histograms are double-buffered: one cluster barrier a pass.
+//   * Ties stay exact across CTAs: each CTA counts its keys equal to the
+//     threshold, and the counts of the lower ranks (read through DSMEM) are
+//     its offset; inside the CTA a block scan ranks the equal keys, 16
+//     consecutive keys a thread, so the lowest indices win.  The mask goes
+//     out in 16-byte stores where the row is 16-byte aligned.
+#define TOPK_THREADS 1024
+#define TOPK_RUN 16            // consecutive keys a thread writes the mask of
+#define TOPK_ILP 4             // keys a thread counts an iteration
+#define TOPK_SMEM_KEYS 40960   // slice keys a CTA keeps in shared memory
+#define TOPK_MIN_SLICE 4096    // fewest keys a CTA takes
 
-  const int b = blockIdx.x;
-  const float* row = x + (int64_t)b * n;
-  uint8_t* out = mask + (int64_t)b * n;
-
-  uint32_t prefix = 0, prefix_mask = 0;
-  int remaining = k;  // still to select among keys matching the prefix
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t key = order_key(row[i]);
-      if ((key & prefix_mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int above = 0, d = 255;
-      for (; d > 0; --d) {
-        const int c = (int)hist[d];
-        if (above + c >= remaining) break;
-        above += c;
-      }
-      s_prefix = prefix | ((uint32_t)d << shift);
-      s_remaining = remaining - above;
-    }
-    __syncthreads();
-    prefix = s_prefix;
-    remaining = s_remaining;
-    prefix_mask |= 255u << shift;
-    __syncthreads();
-  }
-  // prefix is now the k-th largest key; `remaining` of the keys equal to it
-  // are selected, lowest index first.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int taken = 0;
-  for (int start = 0; start < n; start += blockDim.x) {
-    const int i = start + threadIdx.x;
-    uint32_t key = 0;
-    if (i < n) key = order_key(row[i]);
-    const bool eq = i < n && key == prefix;
-    const unsigned ballot = __ballot_sync(0xffffffffu, eq);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int before = taken + __popc(ballot & ((1u << lane) - 1u)), chunk = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      if (w < warp) before += s_warp[w];
-      chunk += s_warp[w];
-    }
-    if (i < n) out[i] = (key > prefix || (eq && before < remaining)) ? 1 : 0;
-    taken += chunk;
-    __syncthreads();
-  }
+__device__ __forceinline__ uint32_t topk_key(const uint32_t* s_key,
+                                             const float* xs, int i,
+                                             bool resident) {
+  return resident ? s_key[i] : order_key(xs[i]);
 }
 
+// The lanes of the warp whose (hit) digit equals this lane's: eight
+// ballots, one a digit bit.
+__device__ __forceinline__ unsigned int same_digit(unsigned int digit,
+                                                   bool hit) {
+  unsigned int peers = __ballot_sync(0xffffffffu, hit);
+  if (peers == 0) return 0;   // no key of the warp matches the prefix
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (digit >> b) & 1u;
+    const unsigned int v = __ballot_sync(0xffffffffu, bit);
+    peers &= bit ? v : ~v;
+  }
+  return peers;
+}
+
+__global__ void __launch_bounds__(TOPK_THREADS, 1)
+    topk_mask_kernel(const float* __restrict__ x, uint8_t* __restrict__ mask,
+                     int n, int k, int slice, int resident) {
+  extern __shared__ __align__(16) uint32_t s_key[];
+  __shared__ unsigned int whist[TOPK_THREADS / 32][256];   // a warp's bins
+  __shared__ unsigned int hist[2][256];
+  __shared__ unsigned int s_scan[8];
+  __shared__ unsigned int s_sel[2];   // chosen digit, keys still to take
+  __shared__ int s_warp[TOPK_THREADS / 32];
+  __shared__ int s_eq, s_off;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;   // 256..1,024 threads
+  const int64_t start = (int64_t)rank * slice;
+  const int64_t left = (int64_t)n - start;
+  const int len = left <= 0 ? 0 : (left < slice ? (int)left : slice);
+  const float* xs = x + (int64_t)blockIdx.y * n + start;
+  uint8_t* out = mask + (int64_t)blockIdx.y * n + start;
+  const bool res = resident != 0;
+
+  if (res && (n & 3) == 0) {   // the slice starts on a 16-byte boundary
+    const float4* x4 = reinterpret_cast<const float4*>(xs);
+#pragma unroll 4
+    for (int i = tid; i < len / 4; i += nt) {
+      const float4 v = x4[i];
+      *reinterpret_cast<uint4*>(s_key + 4 * i) = make_uint4(
+          order_key(v.x), order_key(v.y), order_key(v.z), order_key(v.w));
+    }
+    for (int i = len / 4 * 4 + tid; i < len; i += nt)
+      s_key[i] = order_key(xs[i]);
+  } else if (res) {
+    for (int i = tid; i < len; i += nt) s_key[i] = order_key(xs[i]);
+  }
+  for (int i = tid; i < nw * 256; i += nt) (&whist[0][0])[i] = 0;
+  __syncthreads();
+
+  uint32_t prefix = 0, pmask = 0;
+  unsigned int remaining = (unsigned int)k;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    unsigned int* h = hist[pass & 1];
+    // TOPK_ILP keys a thread an iteration: their ballot chains interleave
+    for (int base = 0; base < len; base += TOPK_ILP * nt) {
+      uint32_t key[TOPK_ILP];
+      bool hit[TOPK_ILP];
+#pragma unroll
+      for (int j = 0; j < TOPK_ILP; ++j) {
+        const int i = base + j * nt + tid;
+        key[j] = i < len ? topk_key(s_key, xs, i, res) : 0u;
+        hit[j] = i < len && (key[j] & pmask) == prefix;
+      }
+#pragma unroll
+      for (int j = 0; j < TOPK_ILP; ++j) {
+        const unsigned int digit = (key[j] >> shift) & 255u;
+        const unsigned int peers = same_digit(digit, hit[j]);
+        if (hit[j] && lane == __ffs(peers) - 1)
+          atomicAdd(&whist[warp][digit], (unsigned int)__popc(peers));
+      }
+    }
+    __syncthreads();
+    // The CTA's histogram (its remote readers of two passes ago have all
+    // passed the cluster barrier of the last pass); the warps' zeroed.
+    if (tid < 256) {
+      unsigned int sum = 0;
+      for (int w0 = 0; w0 < nw; w0 += 16) {   // 16 loads in flight
+        unsigned int part[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+          part[u] = w0 + u < nw ? whist[w0 + u][tid] : 0u;
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          sum += part[u];
+          if (w0 + u < nw) whist[w0 + u][tid] = 0;
+        }
+      }
+      h[tid] = sum;
+    }
+    cluster.sync();
+    // Bins from 255 down: thread t < 256 holds bin 255 - t of the cluster's
+    // histogram and the keys in bins above it.
+    unsigned int cnt = 0, inc = 0;
+    if (tid < 256) {
+      const int d = 255 - tid;
+      unsigned int part[16];   // every rank's bin read at once, then summed
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        part[r] = r < csize ? cluster.map_shared_rank(h, r)[d] : 0u;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) cnt += part[r];
+      inc = cnt;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned int v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      if (lane == 31) s_scan[warp] = inc;
+    }
+    __syncthreads();
+    if (tid < 256) {
+      unsigned int above = inc - cnt;
+      for (int w = 0; w < warp; ++w) above += s_scan[w];
+      if (above < remaining && remaining <= above + cnt) {
+        s_sel[0] = 255u - tid;
+        s_sel[1] = remaining - above;
+      }
+    }
+    __syncthreads();
+    prefix |= s_sel[0] << shift;
+    remaining = s_sel[1];
+    pmask |= 255u << shift;
+  }
+
+  // prefix is the k-th largest key; `remaining` of the keys equal to it are
+  // taken, lowest index (over the whole row) first.
+  int eq = 0;
+  for (int i = tid; i < len; i += nt)
+    eq += topk_key(s_key, xs, i, res) == prefix ? 1 : 0;
+  eq = warp_sum(eq);
+  if (lane == 0) s_warp[warp] = eq;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < nw; ++w) total += s_warp[w];
+    s_eq = total;
+  }
+  cluster.sync();
+  if (warp == 0) {   // lane r < rank reads rank r's count
+    int off = lane < rank ? *cluster.map_shared_rank(&s_eq, lane) : 0;
+    off = warp_sum(off);
+    if (lane == 0) s_off = off;
+  }
+  __syncthreads();
+  unsigned int taken = (unsigned int)s_off;
+  for (int base = 0; base < len; base += TOPK_RUN * nt) {
+    const int i0 = base + TOPK_RUN * tid;
+    uint32_t keys[TOPK_RUN];
+    int ne = 0;
+#pragma unroll
+    for (int j = 0; j < TOPK_RUN; ++j) {
+      keys[j] = i0 + j < len ? topk_key(s_key, xs, i0 + j, res) : 0u;
+      ne += (i0 + j < len && keys[j] == prefix) ? 1 : 0;
+    }
+    int inc = ne;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += v;
+    }
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    unsigned int before = taken + (unsigned int)(inc - ne), chunk = 0;
+    for (int w = 0; w < nw; ++w) {
+      if (w < warp) before += (unsigned int)s_warp[w];
+      chunk += (unsigned int)s_warp[w];
+    }
+    __syncthreads();
+    uint8_t m[TOPK_RUN];
+#pragma unroll
+    for (int j = 0; j < TOPK_RUN; ++j) {
+      const bool is_eq = i0 + j < len && keys[j] == prefix;
+      m[j] = (keys[j] > prefix || (is_eq && before < remaining)) ? 1 : 0;
+      before += is_eq ? 1u : 0u;
+    }
+    if (i0 + TOPK_RUN <= len && ((uintptr_t)(out + i0) & 15) == 0) {
+      uint4 v;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = (uint32_t)m[4 * q] | ((uint32_t)m[4 * q + 1] << 8) |
+               ((uint32_t)m[4 * q + 2] << 16) | ((uint32_t)m[4 * q + 3] << 24);
+      *reinterpret_cast<uint4*>(out + i0) = v;
+    } else {
+      for (int j = 0; j < TOPK_RUN; ++j)
+        if (i0 + j < len) out[i0 + j] = m[j];
+    }
+    taken += chunk;
+  }
+  cluster.sync();   // no CTA leaves while another may still read its s_eq
+}
+
+// The launch of `cluster` CTAs a row over B rows of n keys: the slice a CTA
+// takes, and the shared memory and cluster attributes it needs.
+struct TopkLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int slice, resident;
+};
+
+static cudaError_t topk_launch(int B, int n, int cluster, cudaStream_t stream,
+                               TopkLaunch* L) {
+  if (cluster < 1 || cluster > 16) return cudaErrorInvalidValue;
+  L->slice = (n + cluster - 1) / cluster;
+  L->slice = (L->slice + TOPK_RUN - 1) / TOPK_RUN * TOPK_RUN;
+  L->resident = L->slice <= TOPK_SMEM_KEYS ? 1 : 0;
+  const size_t smem = L->resident ? sizeof(uint32_t) * (size_t)L->slice : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(topk_mask_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  L->cfg = cudaLaunchConfig_t{};
+  L->cfg.gridDim = dim3(cluster, B);
+  // a row of one CTA takes 16 keys a thread, 256 threads at least (one a
+  // bin); a cluster's CTAs take 1,024 threads, one CTA an SM
+  int threads = TOPK_THREADS;
+  if (cluster == 1) {
+    threads = (L->slice / 16 + 31) / 32 * 32;
+    threads = threads < 256 ? 256 : threads > TOPK_THREADS ? TOPK_THREADS
+                                                          : threads;
+  }
+  L->cfg.blockDim = dim3(threads);
+  L->cfg.dynamicSmemBytes = smem;
+  L->cfg.stream = stream;
+  L->attr[0].id = cudaLaunchAttributeClusterDimension;
+  L->attr[0].val.clusterDim.x = cluster;
+  L->attr[0].val.clusterDim.y = 1;
+  L->attr[0].val.clusterDim.z = 1;
+  L->cfg.attrs = L->attr;
+  L->cfg.numAttrs = 1;
+  return err;
+}
+
+// The CTAs a row takes: the most, up to 16 with slices of at least
+// TOPK_MIN_SLICE keys, at which the device holds all B clusters at once; 1
+// where it holds none of those.
+extern "C" int arms_topk_cluster(int B, int n, int* cluster) {
+  *cluster = 1;
+  for (int c = 2; c <= 16 && (n + c - 1) / c >= TOPK_MIN_SLICE; ++c) {
+    TopkLaunch L;
+    cudaError_t err = topk_launch(B, n, c, 0, &L);
+    int active = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&active, topk_mask_kernel, &L.cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (active >= B) *cluster = c;
+  }
+  return (int)cudaSuccess;
+}
+
+// `cluster` CTAs a row (1..16); a cluster the device cannot schedule is
+// refused here, and the caller raises.
 extern "C" int arms_topk_mask(const float* x, uint8_t* mask, int B, int n,
-                              int k, cudaStream_t stream) {
-  topk_mask_kernel<<<B, TOPK_THREADS, 0, stream>>>(x, mask, n, k);
+                              int k, int cluster, cudaStream_t stream) {
+  TopkLaunch L;
+  cudaError_t err = topk_launch(B, n, cluster, stream, &L);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&L.cfg, topk_mask_kernel, x, mask, n, k, L.slice,
+                           L.resident);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,8 @@ _SIGNATURES = {
     "arms_interval_account": [_P] * 5 + [_I64] + [_P] * 4 + [_I64, _P]
     + [_I] * 4 + [_P],
     "arms_tier_migrate": [_P] * 9 + [_I] * 5 + [_P],
-    "arms_topk_mask": [_P, _P, _I, _I, _I, _P],
+    "arms_topk_mask": [_P, _P, _I, _I, _I, _I, _P],
+    "arms_topk_cluster": [_I, _I, ctypes.POINTER(_I)],
 }
 
 
@@ -153,6 +154,24 @@ def tier_migrate(tier, promote, demote, caps):
     return new_tier, pexec, dexec, mig_up, mig_down
 
 
+_CLUSTERS: dict = {}
+
+
+def topk_cluster(B: int, n: int, device) -> int:
+    """CTAs a row of the top-k kernel spreads over on ``device`` (the
+    library's choice from the device's cluster occupancy; kept per shape)."""
+    key = (B, n, torch.device(device).index)
+    if key not in _CLUSTERS:
+        got = _I()
+        with torch.cuda.device(device):
+            err = _lib().arms_topk_cluster(B, n, ctypes.byref(got))
+        if err != 0:
+            raise RuntimeError(f"topk_mask: CUDA error {err} reading the "
+                               f"device's cluster occupancy")
+        _CLUSTERS[key] = got.value
+    return _CLUSTERS[key]
+
+
 def topk_mask(x, k: int):
     """Exact top-k bool mask of f32 [B, n] rows on the card."""
     B, n = x.shape
@@ -161,6 +180,6 @@ def topk_mask(x, k: int):
     _check("x", x, torch.float32, (B, n))
     mask = torch.empty((B, n), dtype=torch.bool, device=x.device)
     err = _lib().arms_topk_mask(x.data_ptr(), mask.data_ptr(), B, n, k,
-                                _stream(x))
+                                topk_cluster(B, n, x.device), _stream(x))
     _done("topk_mask", err)
     return mask

@@ -23,6 +23,7 @@ from repro_torch.kernels import _backend
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_FRAME = 64    # the backward's register tiles hold P and the chunk
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -123,6 +124,9 @@ def mamba_scan_bwd(x, dt, A, Bm, Cm, dy, dh_final=None, *, chunk: int):
                                                 "dh_final": dh_final}
     B, S, H, P, N = _check("mamba_scan_bwd", x, dt, A, Bm, Cm, chunk,
                            **more)
+    if P > BWD_FRAME or chunk > BWD_FRAME:
+        raise ValueError(f"mamba_scan_bwd: P={P}, chunk={chunk}: the "
+                         f"backward takes P and chunk up to {BWD_FRAME}")
     dev, nc = x.device, S // chunk
     dx = torch.empty_like(x)
     ddt, dA = torch.empty_like(dt), torch.empty_like(A)

@@ -57,14 +57,49 @@ def _launches(name, fn):
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,n,k", [(1, 7, 1), (3, 37, 5), (2, 37, 37),
-                                   (4, 513, 1), (2, 4097, 512),
-                                   (16, 65536, 8192)])
-def test_topk_kernel_vs_plain(card, B, n, k):
+def _topk_case(B, n, k, kind, card=None):
+    """Rows for the top-k cases.  ``ties``: few distinct values and signed
+    zeros; ``equal``: every key the same; ``straddle``: 40 keys on each
+    side of every CTA boundary of the row's cluster equal the threshold,
+    of which half are taken (k - half of them keys lie above it, at random
+    places; the rest below it)."""
     rng = np.random.default_rng(n + k)
+    if kind == "equal":
+        return np.full((B, n), 1.5, np.float32)
+    if kind == "straddle":
+        x = rng.random((B, n), dtype=np.float32)
+        C = kernel.topk_cluster(B, n, card)
+        slice_ = -(-(-(-n // C)) // 16) * 16
+        tied = np.zeros(n, bool)
+        for r in range(1, C):
+            tied[max(0, r * slice_ - 40):min(n, r * slice_ + 40)] = True
+        x[:, tied] = 5.0
+        free = np.flatnonzero(~tied)
+        for b in range(B):
+            up = rng.choice(free, k - int(tied.sum()) // 2, replace=False)
+            x[b, up] = 10.0 + rng.random(up.size, dtype=np.float32)
+        return x
     x = (rng.integers(-3, 5, (B, n)) * 0.25).astype(np.float32)
     x[:, ::7] = -0.0
+    return x
+
+
+# the sweep's 16 x 65,536 and arms_sim's single row; k = 1 and k = n past
+# one CTA's slice; an n no slice divides; rows past the shared-memory route
+# (slices of more than 40,960 keys stream from device memory)
+TOPK_CASES = [(1, 7, 1, "ties"), (3, 37, 5, "ties"), (2, 37, 37, "ties"),
+              (4, 513, 1, "ties"), (2, 4097, 512, "ties"),
+              (16, 65536, 8192, "ties"), (1, 65536, 8192, "ties"),
+              (2, 30000, 3000, "equal"), (1, 65536, 8192, "straddle"),
+              (16, 65536, 8192, "straddle"), (2, 20000, 1, "ties"),
+              (2, 20000, 20000, "ties"), (3, 100003, 777, "ties"),
+              (1, 1000003, 4096, "ties"), (2, 800000, 12345, "straddle")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k,kind", TOPK_CASES)
+def test_topk_kernel_vs_plain(card, B, n, k, kind):
+    x = _topk_case(B, n, k, kind, card)
     xd = _t(x).to(card)
     got = _launches("topk_mask", lambda: kernel.topk_mask(xd, k))
     assert torch.equal(got.cpu(), ref.topk_mask_ref(_t(x), k))
@@ -572,8 +607,44 @@ def test_mamba_scan_kernel_vs_plain_bf16(card, shape):
         _within_of_max(g.float(), w, 2e-2)
 
 
+# an odd chunk count (5) at mamba2-370m's widths, and widths the 4 x 4
+# register tiles and 64-wide frames do not divide: P 18, N 30, chunk 10
+# (7 chunks); P 35, N 99 (two column blocks, P N odd: the chunk walk's
+# one-element route and the scalar stores), chunk 12
+MAMBA_EDGE_SHAPES = [(2, 320, 4, 64, 128, 64), (2, 70, 3, 18, 30, 10),
+                     (1, 96, 2, 35, 99, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [MAMBA_SHAPES[0], MAMBA_TRAIN_SHAPE])
+@pytest.mark.parametrize("shape", MAMBA_EDGE_SHAPES)
+def test_mamba_scan_kernel_edges_f32(card, shape):
+    """The f32 gates of ``test_mamba_scan_kernel_vs_plain_f32`` at chunk
+    counts and widths off the tiles."""
+    _, (y, h, grads), (wy, wh, wgrads), ulp = _scan_on_card(
+        card, shape, torch.float32, True)
+    _within_of_max(y, wy, 2e-5 + 4 * ulp)
+    _within_of_max(h, wh, 2e-5 + 4 * ulp)
+    for g, w in zip(grads, wgrads):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _within_of_max(g, w, 1e-4 + 8 * ulp)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_backward_rejects_wide_frames(card):
+    """The backward holds P and the chunk within one 64-wide frame."""
+    x, dt, A, Bm, Cm, dy, _ = (_t(a).to(card) for a in mamba_case(
+        1, 128, 1, 65, 8, 0))
+    with pytest.raises(ValueError):
+        skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=64)
+    x, dt, A, Bm, Cm, dy, _ = (_t(a).to(card) for a in mamba_case(
+        1, 128, 1, 8, 8, 0))
+    with pytest.raises(ValueError):
+        skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [MAMBA_SHAPES[0], MAMBA_TRAIN_SHAPE,
+                                   MAMBA_EDGE_SHAPES[1]])
 def test_mamba_scan_backward_is_repeatable(card, shape):
     """Two backward runs (and two forward runs) give the same bits: no
     atomics, every sum in a fixed order."""
