@@ -16,7 +16,8 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      bytes and operations and, where one exists, a PyTorch library call
      computing the same function: the interval-step kernels at 16 lanes,
      n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans (the top-k
-     mask also at ``arms_sim``'s one lane, a line of its own); the page
+     mask and the accounting also at ``arms_sim``'s one lane, lines of
+     their own); the page
      migration and paged attention at the serving path's full-width
      shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
@@ -32,9 +33,9 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      also time SDPA's backward alone, its forward outside the timed
      region); the Mamba2 scan forward and backward in f32 at the training
      path's shape (B = 2, S = 4,096, 32 heads of 64, N = 128, chunk 64),
-     with the device time of each pass of one backward by kernel name
-     (``torch.profiler``), and at reduced mamba2-370m's, held to the plain
-     version in f32;
+     with the device time of each pass of one forward and one backward by
+     kernel name (``torch.profiler``), and at reduced mamba2-370m's, held
+     to the plain version in f32;
   3. main path, seven paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
@@ -62,7 +63,9 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      forward kernel) and ``make_serve_step`` decoding 256 greedy tokens at
      batch 8 from ``init_cache``; and, in f32, the prefill logits over 128
      tokens through the kernel against the recurrent decode's, token by
-     token (within 1e-2 of the largest logit);
+     token (within 1e-2 of the largest logit); the card's SM clock
+     (``nvidia-smi``) is printed just before and just after each train and
+     prefill phase;
   4. whole-path checks: the scan-engine entry points on the card and on
      the CPU at n = 4,096, T = 256, 4 lanes, on both machines (counts
      exact, exec_time within 1e-4 relative); the serving loop at reduced
@@ -154,11 +157,20 @@ BUILDS = (kernel.SOURCE, mkernel.SOURCE, pkernel.SOURCE, fkernel.SOURCE,
           skernel.SOURCE)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def clocked(label: str, run, path_kernels):
+    """``counted`` with the card's SM clock printed just before and just
+    after the phase (a slow phase on a card whose clock fell says so)."""
+    print(f"clock before {label}: sm {card_line('clocks.sm')}", flush=True)
+    out = counted(label, run, path_kernels)
+    print(f"clock after {label}: sm {card_line('clocks.sm')}", flush=True)
+    return out
 
 
 def cuda_ms(fn, sets, reps: int = 24) -> float:
@@ -311,20 +323,23 @@ def kernel_phase(dev, rng):
               nbytes(*args) + nbytes(tier) + 2 * B * PLAN
               + 8 * B * (R - 1), 4 * B * N)
 
-        # interval_account: one trace row shared by every lane
+        # interval_account: one trace row shared by every lane, held to the
+        # plain version bit for bit (f64 sums rounded once, the same f32
+        # epilogue); at the sweep's 16 lanes and, on the 3-tier machine,
+        # at arms_sim's single lane
         true = f((2e7 / N * rng.gamma(1.0, 1.0, N)).astype(np.float32))
         orc = ref.topk_mask_ref(true[None], K)[0]
-        args = (mach, true[None].expand(B, N), tier,
-                f(rng.integers(0, PLAN, (B, R - 1)).astype(np.float32)),
-                f(rng.integers(0, PLAN, (B, R - 1)).astype(np.float32)),
-                orc[None].expand(B, N), K)
-        require(torch.equal(ops.interval_account(*args)[5],
-                            ref.interval_account_ref(*args)[5]),
-                "interval_account: recall")
-        entry("interval_account", f"B={B} n={N} R={R} k={K}",
-              ops.interval_account, ref.interval_account_ref, args, False,
-              nbytes(mach.lat_ns, mach.bw_read, mach.bw_write, mach.mlp,
-                     *args[1:6]) + 6 * B * 4, (2 * R + 1) * B * N)
+        up = f(rng.integers(0, PLAN, (B, R - 1)).astype(np.float32))
+        down = f(rng.integers(0, PLAN, (B, R - 1)).astype(np.float32))
+        for lanes in (B, 1) if R == 3 else (B,):
+            m = mach if lanes == B else machine_spec.lane_stack(
+                [spec], N, K, dev)[0]
+            args = (m, true[None].expand(lanes, N), tier[:lanes],
+                    up[:lanes], down[:lanes], orc[None].expand(lanes, N), K)
+            entry("interval_account", f"B={lanes} n={N} R={R} k={K}",
+                  ops.interval_account, ref.interval_account_ref, args, True,
+                  nbytes(m.lat_ns, m.bw_read, m.bw_write, m.mlp, *args[1:6])
+                  + 6 * lanes * 4, (2 * R + 1) * lanes * N)
     serving_rows(entry, f, rng)
     score_rows(rows, entry, f, rng)
     flash_rows(rows, rng)
@@ -653,23 +668,32 @@ def cs_ulp(dt, A, Q: int) -> float:
 
 
 def scan_passes(ins, dy, Q: int, label: str, calls: int = 5):
-    """Device time of each pass of one ``mamba_scan_bwd`` call, by kernel
-    name under ``torch.profiler`` (the mean over ``calls`` calls)."""
+    """Device time of each pass of one ``mamba_scan_fwd`` call (``ms_cb``,
+    ``ms_states``, ``ms_scan``, ``ms_out``) and of one ``mamba_scan_bwd``
+    call, by kernel name under ``torch.profiler`` (the mean over
+    ``calls`` calls)."""
     from torch.profiler import ProfilerActivity, profile
-    skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
+    for name, run in (
+            ("mamba_scan_fwd",
+             lambda: skernel.mamba_scan_fwd(*ins, chunk=Q)),
+            ("mamba_scan_bwd",
+             lambda: skernel.mamba_scan_bwd(*ins, dy, chunk=Q))):
+        run()
         torch.cuda.synchronize()
-    passes = {e.key.split("(")[0].removeprefix("void "):
-              round(e.self_device_time_total / 1e3 / calls, 5)
-              for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0 and SCAN_KERNEL.match(e.key)}
-    require(passes, "mamba_scan_bwd: the profiler saw no pass")
-    print(f"mamba_scan_bwd passes ({label}), device ms a call: "
-          f"{json.dumps(passes)} sum={sum(passes.values()):.5f}", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        passes = {e.key.split("(")[0].removeprefix("void "):
+                  round(e.self_device_time_total / 1e3 / calls, 5)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and SCAN_KERNEL.match(e.key)}
+        require(passes, f"{name}: the profiler saw no pass")
+        print(f"{name} passes ({label}), device ms a call: "
+              f"{json.dumps(passes)} sum={sum(passes.values()):.5f}",
+              flush=True)
 
 
 def mamba_rows(rows, rng):
@@ -680,8 +704,8 @@ def mamba_rows(rows, rng):
     tests' tolerances: the kernel sums the chunk cumsum cs in f64 as the
     CPU does, the plain version on the card with ``torch.cumsum`` in f32,
     and ``exp`` turns that last-ulp difference into a relative error of
-    every decay); two backward runs
-    give the same bits.  Plain times: the plain version, for the backward
+    every decay); two forward runs and two backward runs each give the
+    same bits.  Plain times: the plain version, for the backward
     row its forward plus autograd backward.  No PyTorch call computes the
     scan, so the library time is null.  The bound takes the f32 rate."""
     for label, (B_, S, H, P, N_, Q), model_like in MAMBA_ROWS:
@@ -718,6 +742,9 @@ def mamba_rows(rows, rng):
         again = skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
         require(all(torch.equal(a, b) for a, b in zip(grads, again)),
                 f"mamba_scan_bwd {label}: two runs differ")
+        again = skernel.mamba_scan_fwd(*ins, chunk=Q)
+        require(torch.equal(y, again[0]) and torch.equal(h, again[1]),
+                f"mamba_scan_fwd {label}: two runs differ")
         del wy, wh, w_grads, again, leaves_
 
         def plain_fwd_bwd(x, dt, A, Bm, Cm, dy):
@@ -858,7 +885,7 @@ def main_path(seed: int):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, wall4, train_counts = counted("train", lambda: train.train(
+    losses, wall4, train_counts = clocked("train", lambda: train.train(
         TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, full=True,
         seed=seed, log_every=1), TRAIN_KERNELS)
     require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
@@ -877,7 +904,7 @@ def main_path(seed: int):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, wall5, ssm_counts = counted("train_ssm", lambda: train.train(
+    losses, wall5, ssm_counts = clocked("train_ssm", lambda: train.train(
         SSM_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, full=True, seed=seed,
         log_every=1), SSM_KERNELS)
     require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
@@ -1011,7 +1038,7 @@ def ssm_paths(seed: int) -> dict:
                             dev)
     prefill = steps.make_prefill_step(cfg)
     torch.cuda.reset_peak_memory_stats()
-    logits, wall, pre_counts = counted(
+    logits, wall, pre_counts = clocked(
         "prefill_ssm", lambda: prefill(params, batch), ("mamba_scan_fwd",))
     require(logits.shape == (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
             and bool(torch.isfinite(logits).all()),

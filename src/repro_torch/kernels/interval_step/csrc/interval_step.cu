@@ -27,7 +27,6 @@
 namespace cg = cooperative_groups;
 
 #define MAX_TIERS 8
-#define ACCOUNT_THREADS 512
 #define MIGRATE_THREADS 512
 
 static const float kPageBytes = 2097152.0f;  // PAGE_BYTES
@@ -112,98 +111,283 @@ __device__ T block_sum(T v, T* scratch) {
 // -------------------------------------------------------------- accounting
 // Replaces kernel.py:interval_account_kernel (_account_body).  Bound:
 // bytes — the true row (f32), the tier row (i32) and the oracle row (u8)
-// read once per lane.  Design: one block per lane; each thread accumulates
-// the R-1 masked sums and the total in f64 (the plain version's rounding:
-// exact sums, one rounding to f32, so the result does not depend on the
-// reduction order) and the recall count in int; block reductions; thread 0
-// runs the scalar epilogue of the Pallas body in f32, op for op.  In trace
-// mode `true` and `oracle` are one row shared by all lanes: their lane
-// stride is 0 and the lanes' reads hit L2.
-__global__ void interval_account_kernel(
-    const float* __restrict__ lat, const float* __restrict__ br,
-    const float* __restrict__ bw, const float* __restrict__ mlp,
-    const float* __restrict__ true_, int64_t true_stride,
-    const int* __restrict__ tier, const float* __restrict__ mig_up,
-    const float* __restrict__ mig_down, const uint8_t* __restrict__ oracle,
-    int64_t oracle_stride, float* __restrict__ out, int n, int R, int k) {
-  __shared__ double s_d[32];
-  __shared__ int s_i[32];
-  const int b = blockIdx.x;
-  const float* row = true_ + b * true_stride;
-  const int* trow = tier + (int64_t)b * n;
-  const uint8_t* orow = oracle + b * oracle_stride;
+// read once per lane, 9 bytes a page; at the replay's 16 x 65,536 (one
+// true and oracle row shared by the lanes) that is 1.35 us at the HBM
+// rate, so the floor in practice is a launch and a few memory latencies.
+// Design: each lane on a thread-block cluster of C CTAs, C the most (up to
+// the non-portable 16, slices of at least ACCOUNT_MIN_SLICE pages) at which
+// the device holds all B clusters at once (cudaOccupancyMaxActiveClusters,
+// arms_account_cluster), so a lane's pages are read by up to 16 SMs and
+// not one, even at B 1.  Each CTA takes a contiguous slice: 16-byte loads of
+// the true and tier rows and one 4-byte word of four oracle bytes where
+// the lane's rows allow them (a scalar ragged tail), ACCOUNT_ILP of a
+// thread's loads in flight.  Each thread accumulates the R-1 masked sums
+// and the total in f64, rounded once to f32 as the plain version rounds
+// its f64 sums (the two sum in different orders, so the f64 sums are not
+// exact and may differ; their error lies far below half an f32 ulp, so
+// the f32 results agree unless a sum lands within it of a rounding
+// boundary), and the recall count as an int; one warp-shuffle
+// pass reduces them all, then one barrier and one pass over the warps;
+// rank 0 sums the CTAs' partials through distributed shared memory in
+// rank order and runs the scalar epilogue of the Pallas body in f32, op
+// for op.  Every sum runs in a fixed order, with no atomics.  In trace mode
+// `true` and `oracle` are one row shared by all lanes: their lane stride is
+// 0 and the lanes' reads hit L2.
+#define ACCOUNT_THREADS 256
+#define ACCOUNT_ILP 4            // 16-byte words of a thread in flight
+#define ACCOUNT_MIN_SLICE 1024   // fewest pages a CTA of a cluster takes
 
-  double total = 0.0, acc[MAX_TIERS - 1];
-#pragma unroll
-  for (int r = 0; r < MAX_TIERS - 1; ++r) acc[r] = 0.0;
-  int hits = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const double v = (double)row[i];
-    const int t = trow[i];
-    total += v;
-#pragma unroll
-    for (int r = 0; r < MAX_TIERS - 1; ++r)
-      if (r < R - 1 && t == r) acc[r] += v;
-    hits += (t == 0 && orow[i] != 0) ? 1 : 0;
-  }
-  total = block_sum(total, s_d);
+// One page into a thread's sums: acc[0] the total, acc[1 + r] tier r's.
+__device__ __forceinline__ void account_page(double (&acc)[MAX_TIERS],
+                                             int& hits, float x, int t,
+                                             bool hot, int R) {
+  const double v = (double)x;
+  acc[0] += v;
 #pragma unroll
   for (int r = 0; r < MAX_TIERS - 1; ++r)
-    if (r < R - 1) acc[r] = block_sum(acc[r], s_d);
-  hits = block_sum(hits, s_i);
-  if (threadIdx.x != 0) return;
-
-  const float* L = lat + b * R;
-  const float* BR = br + b * R;
-  const float* BW = bw + b * R;
-  const float* up = mig_up + b * (R - 1);
-  const float* down = mig_down + b * (R - 1);
-  float accs[MAX_TIERS], times[MAX_TIERS];
-  float rest = (float)total;
-  for (int r = 0; r < R - 1; ++r) {
-    accs[r] = (float)acc[r];
-    rest = rest - accs[r];
-  }
-  accs[R - 1] = rest;
-
-  float t_lat = accs[0] * L[0];
-  for (int r = 1; r < R; ++r) t_lat = t_lat + accs[r] * L[r];
-  t_lat = t_lat * 1e-9f / mlp[b];
-
-  times[0] = (accs[0] * kCacheline + (up[0] + down[0]) * kPageBytes) / BR[0];
-  for (int r = 1; r < R; ++r) {
-    float rd = up[r - 1];
-    if (r < R - 1) rd = rd + down[r];
-    float wr = down[r - 1];
-    if (r < R - 1) wr = wr + up[r];
-    times[r] = (accs[r] * kCacheline + rd * kPageBytes) / BR[r] +
-               wr * kPageBytes / BW[r];
-  }
-  float rest_max = times[1];
-  for (int r = 2; r < R; ++r) rest_max = fmaxf(rest_max, times[r]);
-  const float wall =
-      fmaxf(fmaxf(t_lat, times[0]), fmaxf(rest_max, 1e-12f));
-  float rest_acc = accs[1];
-  for (int r = 2; r < R; ++r) rest_acc = rest_acc + accs[r];
-
-  float* o = out + 6 * b;
-  o[0] = accs[0];
-  o[1] = rest_acc;
-  o[2] = wall;
-  o[3] = rest_acc / fmaxf(accs[0] + rest_acc, 1e-9f);
-  o[4] = times[0] / fmaxf(t_lat, fmaxf(rest_max, 1e-12f));
-  o[5] = (float)hits / (float)k;
+    if (r < R - 1 && t == r) acc[1 + r] += v;
+  hits += (t == 0 && hot) ? 1 : 0;
 }
 
+__global__ void __launch_bounds__(ACCOUNT_THREADS)
+    interval_account_kernel(
+        const float* __restrict__ lat, const float* __restrict__ br,
+        const float* __restrict__ bw, const float* __restrict__ mlp,
+        const float* __restrict__ true_, int64_t true_stride,
+        const int* __restrict__ tier, const float* __restrict__ mig_up,
+        const float* __restrict__ mig_down,
+        const uint8_t* __restrict__ oracle, int64_t oracle_stride,
+        float* __restrict__ out, int n, int R, int k, int slice) {
+  __shared__ double s_warp[ACCOUNT_THREADS / 32][MAX_TIERS];
+  __shared__ int s_whits[ACCOUNT_THREADS / 32];
+  __shared__ double s_part[MAX_TIERS];   // this CTA's sums (read by rank 0)
+  __shared__ int s_phits;
+  __shared__ double s_tot[MAX_TIERS];    // the lane's (rank 0)
+  __shared__ int s_thits;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const int64_t start = (int64_t)rank * slice;
+  const int64_t left = (int64_t)n - start;
+  const int len = left <= 0 ? 0 : (left < slice ? (int)left : slice);
+  const float* row = true_ + b * true_stride + start;
+  const int* trow = tier + (int64_t)b * n + start;
+  const uint8_t* orow = oracle + b * oracle_stride + start;
+
+  double acc[MAX_TIERS];
+#pragma unroll
+  for (int s = 0; s < MAX_TIERS; ++s) acc[s] = 0.0;
+  int hits = 0, done = 0;
+  if (((((uintptr_t)row | (uintptr_t)trow) & 15) |
+       ((uintptr_t)orow & 3)) == 0) {
+    const int nv = len / 4;
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const int4* t4 = reinterpret_cast<const int4*>(trow);
+    const uint32_t* o4 = reinterpret_cast<const uint32_t*>(orow);
+    for (int v0 = tid; v0 < nv; v0 += ACCOUNT_ILP * ACCOUNT_THREADS) {
+      float4 x[ACCOUNT_ILP];
+      int4 t[ACCOUNT_ILP];
+      uint32_t o[ACCOUNT_ILP];
+#pragma unroll
+      for (int u = 0; u < ACCOUNT_ILP; ++u) {
+        const int v = v0 + u * ACCOUNT_THREADS;
+        if (v < nv) {
+          x[u] = r4[v];
+          t[u] = t4[v];
+          o[u] = o4[v];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ACCOUNT_ILP; ++u) {
+        if (v0 + u * ACCOUNT_THREADS < nv) {
+          account_page(acc, hits, x[u].x, t[u].x, (o[u] & 0xffu) != 0, R);
+          account_page(acc, hits, x[u].y, t[u].y, (o[u] & 0xff00u) != 0, R);
+          account_page(acc, hits, x[u].z, t[u].z, (o[u] & 0xff0000u) != 0,
+                       R);
+          account_page(acc, hits, x[u].w, t[u].w, (o[u] >> 24) != 0, R);
+        }
+      }
+    }
+    done = nv * 4;
+  }
+  for (int i = done + tid; i < len; i += ACCOUNT_THREADS)
+    account_page(acc, hits, row[i], trow[i], orow[i] != 0, R);
+
+  // the CTA's sums: one shuffle pass, one barrier, one pass over the warps
+#pragma unroll
+  for (int s = 0; s < MAX_TIERS; ++s)
+    if (s < R) acc[s] = warp_sum(acc[s]);
+  hits = warp_sum(hits);
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < MAX_TIERS; ++s)
+      if (s < R) s_warp[warp][s] = acc[s];
+    s_whits[warp] = hits;
+  }
+  __syncthreads();
+  if (tid < R) {
+    double v = 0.0;
+    for (int w = 0; w < ACCOUNT_THREADS / 32; ++w) v += s_warp[w][tid];
+    s_part[tid] = v;
+  } else if (tid == 32) {
+    int h = 0;
+    for (int w = 0; w < ACCOUNT_THREADS / 32; ++w) h += s_whits[w];
+    s_phits = h;
+  }
+  cluster.sync();
+  if (rank == 0) {   // the lane's sums, rank by rank: every remote load at once
+    if (tid < R) {
+      double part[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        part[r] = r < csize ? cluster.map_shared_rank(s_part, r)[tid] : 0.0;
+      double v = 0.0;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) v += part[r];
+      s_tot[tid] = v;
+    } else if (tid == 32) {
+      int part[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        part[r] = r < csize ? *cluster.map_shared_rank(&s_phits, r) : 0;
+      int h = 0;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) h += part[r];
+      s_thits = h;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const float* L = lat + b * R;
+      const float* BR = br + b * R;
+      const float* BW = bw + b * R;
+      const float* up = mig_up + b * (R - 1);
+      const float* down = mig_down + b * (R - 1);
+      float accs[MAX_TIERS], times[MAX_TIERS];
+      float rest = (float)s_tot[0];
+      for (int r = 0; r < R - 1; ++r) {
+        accs[r] = (float)s_tot[1 + r];
+        rest = rest - accs[r];
+      }
+      accs[R - 1] = rest;
+
+      float t_lat = accs[0] * L[0];
+      for (int r = 1; r < R; ++r) t_lat = t_lat + accs[r] * L[r];
+      t_lat = t_lat * 1e-9f / mlp[b];
+
+      times[0] =
+          (accs[0] * kCacheline + (up[0] + down[0]) * kPageBytes) / BR[0];
+      for (int r = 1; r < R; ++r) {
+        float rd = up[r - 1];
+        if (r < R - 1) rd = rd + down[r];
+        float wr = down[r - 1];
+        if (r < R - 1) wr = wr + up[r];
+        times[r] = (accs[r] * kCacheline + rd * kPageBytes) / BR[r] +
+                   wr * kPageBytes / BW[r];
+      }
+      float rest_max = times[1];
+      for (int r = 2; r < R; ++r) rest_max = fmaxf(rest_max, times[r]);
+      const float wall =
+          fmaxf(fmaxf(t_lat, times[0]), fmaxf(rest_max, 1e-12f));
+      float rest_acc = accs[1];
+      for (int r = 2; r < R; ++r) rest_acc = rest_acc + accs[r];
+
+      float* o = out + 6 * b;
+      o[0] = accs[0];
+      o[1] = rest_acc;
+      o[2] = wall;
+      o[3] = rest_acc / fmaxf(accs[0] + rest_acc, 1e-9f);
+      o[4] = times[0] / fmaxf(t_lat, fmaxf(rest_max, 1e-12f));
+      o[5] = (float)s_thits / (float)k;
+    }
+  }
+  cluster.sync();   // no CTA leaves while rank 0 may still read its sums
+}
+
+// A launch of `cluster` CTAs a lane over B lanes (grid cluster x B) of
+// `threads` threads and `smem` bytes of dynamic shared memory, with the
+// cluster attributes its kernel needs; `slice` (and, for top-k, whether
+// the slice is resident in shared memory) as the kernel's launcher sets it.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int slice, resident;
+};
+
+template <typename Kernel>
+static cudaError_t cluster_config(Kernel kernel, int B, int cluster,
+                                  int threads, size_t smem,
+                                  cudaStream_t stream, ClusterLaunch* L) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  L->cfg = cudaLaunchConfig_t{};
+  L->cfg.gridDim = dim3(cluster, B);
+  L->cfg.blockDim = dim3(threads);
+  L->cfg.dynamicSmemBytes = smem;
+  L->cfg.stream = stream;
+  L->attr[0].id = cudaLaunchAttributeClusterDimension;
+  L->attr[0].val.clusterDim.x = cluster;
+  L->attr[0].val.clusterDim.y = 1;
+  L->attr[0].val.clusterDim.z = 1;
+  L->cfg.attrs = L->attr;
+  L->cfg.numAttrs = 1;
+  return err;
+}
+
+// The CTAs a lane takes: the most, up to 16 with slices of at least
+// `min_slice` elements, at which the device holds all B clusters of
+// `kernel` (as `launch` configures it) at once; 1 where it holds none of
+// those.
+template <typename Kernel, typename Launch>
+static int best_cluster(Kernel kernel, Launch launch, int B, int n,
+                        int min_slice, int* cluster) {
+  *cluster = 1;
+  for (int c = 2; c <= 16 && (n + c - 1) / c >= min_slice; ++c) {
+    ClusterLaunch L;
+    cudaError_t err = launch(B, n, c, 0, &L);
+    int active = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&active, kernel, &L.cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (active >= B) *cluster = c;
+  }
+  return (int)cudaSuccess;
+}
+
+static cudaError_t account_launch(int B, int n, int cluster,
+                                  cudaStream_t stream, ClusterLaunch* L) {
+  if (cluster < 1 || cluster > 16) return cudaErrorInvalidValue;
+  // slices start on a 16-byte boundary of a lane's rows
+  L->slice = ((n + cluster - 1) / cluster + 3) / 4 * 4;
+  return cluster_config(interval_account_kernel, B, cluster, ACCOUNT_THREADS,
+                        0, stream, L);
+}
+
+extern "C" int arms_account_cluster(int B, int n, int* cluster) {
+  return best_cluster(interval_account_kernel, account_launch, B, n,
+                      ACCOUNT_MIN_SLICE, cluster);
+}
+
+// `cluster` CTAs a lane (1..16); a cluster the device cannot schedule is
+// refused here, and the caller raises.
 extern "C" int arms_interval_account(
     const float* lat, const float* br, const float* bw, const float* mlp,
     const float* true_, int64_t true_stride, const int* tier,
     const float* mig_up, const float* mig_down, const uint8_t* oracle,
     int64_t oracle_stride, float* out, int B, int n, int R, int k,
-    cudaStream_t stream) {
-  interval_account_kernel<<<B, ACCOUNT_THREADS, 0, stream>>>(
-      lat, br, bw, mlp, true_, true_stride, tier, mig_up, mig_down, oracle,
-      oracle_stride, out, n, R, k);
+    int cluster, cudaStream_t stream) {
+  ClusterLaunch L;
+  cudaError_t err = account_launch(B, n, cluster, stream, &L);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&L.cfg, interval_account_kernel, lat, br, bw, mlp,
+                           true_, true_stride, tier, mig_up, mig_down, oracle,
+                           oracle_stride, out, n, R, k, L.slice);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -592,29 +776,14 @@ __global__ void __launch_bounds__(TOPK_THREADS, 1)
 }
 
 // The launch of `cluster` CTAs a row over B rows of n keys: the slice a CTA
-// takes, and the shared memory and cluster attributes it needs.
-struct TopkLaunch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  int slice, resident;
-};
-
+// takes, and whether it stays in shared memory.
 static cudaError_t topk_launch(int B, int n, int cluster, cudaStream_t stream,
-                               TopkLaunch* L) {
+                               ClusterLaunch* L) {
   if (cluster < 1 || cluster > 16) return cudaErrorInvalidValue;
   L->slice = (n + cluster - 1) / cluster;
   L->slice = (L->slice + TOPK_RUN - 1) / TOPK_RUN * TOPK_RUN;
   L->resident = L->slice <= TOPK_SMEM_KEYS ? 1 : 0;
   const size_t smem = L->resident ? sizeof(uint32_t) * (size_t)L->slice : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(topk_mask_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  L->cfg = cudaLaunchConfig_t{};
-  L->cfg.gridDim = dim3(cluster, B);
   // a row of one CTA takes 16 keys a thread, 256 threads at least (one a
   // bin); a cluster's CTAs take 1,024 threads, one CTA an SM
   int threads = TOPK_THREADS;
@@ -623,40 +792,20 @@ static cudaError_t topk_launch(int B, int n, int cluster, cudaStream_t stream,
     threads = threads < 256 ? 256 : threads > TOPK_THREADS ? TOPK_THREADS
                                                           : threads;
   }
-  L->cfg.blockDim = dim3(threads);
-  L->cfg.dynamicSmemBytes = smem;
-  L->cfg.stream = stream;
-  L->attr[0].id = cudaLaunchAttributeClusterDimension;
-  L->attr[0].val.clusterDim.x = cluster;
-  L->attr[0].val.clusterDim.y = 1;
-  L->attr[0].val.clusterDim.z = 1;
-  L->cfg.attrs = L->attr;
-  L->cfg.numAttrs = 1;
-  return err;
+  return cluster_config(topk_mask_kernel, B, cluster, threads, smem, stream,
+                        L);
 }
 
-// The CTAs a row takes: the most, up to 16 with slices of at least
-// TOPK_MIN_SLICE keys, at which the device holds all B clusters at once; 1
-// where it holds none of those.
 extern "C" int arms_topk_cluster(int B, int n, int* cluster) {
-  *cluster = 1;
-  for (int c = 2; c <= 16 && (n + c - 1) / c >= TOPK_MIN_SLICE; ++c) {
-    TopkLaunch L;
-    cudaError_t err = topk_launch(B, n, c, 0, &L);
-    int active = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&active, topk_mask_kernel, &L.cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (active >= B) *cluster = c;
-  }
-  return (int)cudaSuccess;
+  return best_cluster(topk_mask_kernel, topk_launch, B, n, TOPK_MIN_SLICE,
+                      cluster);
 }
 
 // `cluster` CTAs a row (1..16); a cluster the device cannot schedule is
 // refused here, and the caller raises.
 extern "C" int arms_topk_mask(const float* x, uint8_t* mask, int B, int n,
                               int k, int cluster, cudaStream_t stream) {
-  TopkLaunch L;
+  ClusterLaunch L;
   cudaError_t err = topk_launch(B, n, cluster, stream, &L);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&L.cfg, topk_mask_kernel, x, mask, n, k, L.slice,

@@ -26,7 +26,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "arms_ewma_update": [_P] * 7 + [_I, _I, _P],
     "arms_interval_account": [_P] * 5 + [_I64] + [_P] * 4 + [_I64, _P]
-    + [_I] * 4 + [_P],
+    + [_I] * 5 + [_P],
+    "arms_account_cluster": [_I, _I, ctypes.POINTER(_I)],
     "arms_tier_migrate": [_P] * 9 + [_I] * 5 + [_P],
     "arms_topk_mask": [_P, _P, _I, _I, _I, _I, _P],
     "arms_topk_cluster": [_I, _I, ctypes.POINTER(_I)],
@@ -120,7 +121,7 @@ def interval_account(lat, br, bw, mlp, true, tier, mig_up, mig_down, oracle,
         lat.data_ptr(), br.data_ptr(), bw.data_ptr(), mlp.data_ptr(),
         true.data_ptr(), t_stride, tier.data_ptr(), mig_up.data_ptr(),
         mig_down.data_ptr(), oracle.data_ptr(), o_stride, out.data_ptr(),
-        B, n, R, k, _stream(tier))
+        B, n, R, k, account_cluster(B, n, dev), _stream(tier))
     _done("interval_account", err)
     return tuple(out[:, i] for i in range(6))
 
@@ -157,19 +158,31 @@ def tier_migrate(tier, promote, demote, caps):
 _CLUSTERS: dict = {}
 
 
-def topk_cluster(B: int, n: int, device) -> int:
-    """CTAs a row of the top-k kernel spreads over on ``device`` (the
-    library's choice from the device's cluster occupancy; kept per shape)."""
-    key = (B, n, torch.device(device).index)
+def _cluster(kind: str, B: int, n: int, device) -> int:
+    """CTAs a lane of the ``kind`` kernel (``topk`` or ``account``) spreads
+    over on ``device``: the library's choice from the device's cluster
+    occupancy, kept per shape."""
+    key = (kind, B, n, torch.device(device).index)
     if key not in _CLUSTERS:
         got = _I()
         with torch.cuda.device(device):
-            err = _lib().arms_topk_cluster(B, n, ctypes.byref(got))
+            err = getattr(_lib(), f"arms_{kind}_cluster")(
+                B, n, ctypes.byref(got))
         if err != 0:
-            raise RuntimeError(f"topk_mask: CUDA error {err} reading the "
+            raise RuntimeError(f"{kind}: CUDA error {err} reading the "
                                f"device's cluster occupancy")
         _CLUSTERS[key] = got.value
     return _CLUSTERS[key]
+
+
+def topk_cluster(B: int, n: int, device) -> int:
+    """CTAs a row of the top-k kernel spreads over on ``device``."""
+    return _cluster("topk", B, n, device)
+
+
+def account_cluster(B: int, n: int, device) -> int:
+    """CTAs a lane of the accounting kernel spreads over on ``device``."""
+    return _cluster("account", B, n, device)
 
 
 def topk_mask(x, k: int):

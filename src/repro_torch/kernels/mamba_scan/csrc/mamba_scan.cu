@@ -29,13 +29,24 @@
 // (tools/redesign_probe.py).  Every product is register-tiled (tile_mm):
 // a block's 256 threads each own a 4 x 4 tile of a 64 x 64 output frame
 // and accumulate outer products in registers from float4 strips of shared
-// memory, 16 fmaf for every two 16-byte loads.  Each operand is read in the
-// layout it arrives in (row-major from device memory); a tile's rows follow
-// the operand's layout (4 consecutive rows when the strip runs along them,
-// rows 16 apart when it runs along k), and shared rows are an odd number of
-// 16-byte words long, so both kinds of strip load without bank conflicts.
-// Every output is one fmaf chain in k order.  Fills of shared memory keep
-// 8 of a thread's device-memory loads in flight (staged).
+// memory, 16 fmaf for every two 16-byte loads.  The passes shared with the
+// backward read each operand in the layout it arrives in (row-major from
+// device memory); a tile's rows follow the operand's layout (4 consecutive
+// rows when the strip runs along them, rows 16 apart when it runs along
+// k), and shared rows are an odd number of 16-byte words long, so both
+// kinds of strip load without bank conflicts.  ms_out stores its row
+// operands transposed as it fills them, so its tiles take 4 consecutive
+// rows and its triangle ends each tile's k range at the tile's last row.
+// Every output is one fmaf chain in k order.  Shared memory fills in one
+// of two ways.  staged (passes 1, 2 and 5) keeps 8 of a thread's
+// device-memory loads in flight, consecutive threads on consecutive
+// columns of a row, each load stored as one float: right for frames
+// stored in the layout they are read in.  frame_fill (pass 4 only) gives
+// a thread 4 consecutive rows of one column, so a frame stored transposed
+// takes each thread's 4 values as one conflict-free 16-byte store, with 8
+// loads in flight a round; staged's one-float stores into a transposed
+// frame conflict 4 ways, and ms_out read slower with them (PERF.md §6).
+// A new pass takes staged unless it stores transposed.
 
 // The TPU kernel walks the chunks of one (b, h) in order with the state in
 // VMEM; here blocks run in parallel, so the scan is cut into passes over
@@ -61,7 +72,15 @@
 //      the chunks in reverse and leaves the gradient of the state leaving
 //      each chunk.  Bound by bytes: st and du read and written once.
 //   4. ms_out: one block per (chunk, head, b): y from the decay-masked
-//      C . B^T, x dt and the state entering the chunk.
+//      C . B^T, x dt and the state entering the chunk, the forward's own
+//      pass and the TPU kernel's output (the pallas body's y).  Bound by
+//      operations (5.4 GFLOP at the training shape; st, 134 MB, read
+//      once).  Both products run on the register tiles, the triangle's k
+//      range ending at a tile's last row and the state term walking N in
+//      64-column blocks, so three 64 x 68 frames (52 KiB) let four blocks
+//      share an SM, and a frame fills in two memory latencies with
+//      conflict-free transposed stores.  Each output is one fmaf chain over
+//      j, then one over n, both ascending, the plain sums' order.
 //   5. ms_bwd_chunk: one block per (chunk, head, b) forms the chunk's dx,
 //      ddt and its head's share of dBm, dCm and dA.  It holds P, Q <= 64
 //      (one frame) and walks N in 64-column blocks, so its shared memory
@@ -194,7 +213,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Four consecutive columns n0..n0+3 of a row of length N: one 16-byte
-// store where they are all inside and N keeps them aligned.
+// store (8 bytes in bf16) where they are all inside and N keeps them
+// aligned.
 __device__ __forceinline__ void store4(float* row, int n0, int N,
                                        const float (&v)[4]) {
   if (n0 + 3 < N && (N & 3) == 0) {
@@ -203,6 +223,21 @@ __device__ __forceinline__ void store4(float* row, int n0, int N,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (n0 + c < N) row[n0 + c] = v[c];
+  }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* row, int n0, int N,
+                                       const float (&v)[4]) {
+  if (n0 + 3 < N && (N & 3) == 0) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(row + n0) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (n0 + c < N) row[n0 + c] = __float2bfloat16(v[c]);
   }
 }
 
@@ -461,48 +496,135 @@ __global__ void __launch_bounds__(MS_THREADS)
 }
 
 // ------------------------------------------------------------ 4. outputs
-// Shared rows of the state are N + 1 floats long: the threads of a warp
-// (consecutive p) read distinct banks.
+// put(q, c, v) with v[r] = get(q + r, c), r < 4, over a 64 x 64 frame of
+// a 256-thread block: thread t takes column c = t % 64 (a warp reads 32
+// consecutive columns of a row) and rows 4 (t / 64) + 16 u + r, u < 4, in
+// two rounds of OUT_INFLIGHT groups u, each round's 8 loads in flight
+// before its puts (16 at once spilled beside the accumulator).  A put of
+// 4 consecutive rows of one column into a transposed frame is one 16-byte
+// store, without bank conflicts.
+#define OUT_INFLIGHT 2
+template <typename Get, typename Put>
+__device__ __forceinline__ void frame_fill(Get get, Put put) {
+  const int c = threadIdx.x & (FR - 1), q0 = (threadIdx.x >> 6) * 4;
+#pragma unroll 1   // a round's loads are not hoisted above the last puts
+  for (int u0 = 0; u0 < 4; u0 += OUT_INFLIGHT) {
+    float v[OUT_INFLIGHT][4];
+#pragma unroll
+    for (int u = 0; u < OUT_INFLIGHT; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[u][r] = get(q0 + 16 * (u0 + u) + r, c);
+#pragma unroll
+    for (int u = 0; u < OUT_INFLIGHT; ++u) put(q0 + 16 * (u0 + u), c, v[u]);
+  }
+}
+
+// f[c][q..q+3] = v: 4 rows q.. of column c into a transposed frame.
+__device__ __forceinline__ void put_t(float* f, int q, int c,
+                                      const float (&v)[4]) {
+  *reinterpret_cast<float4*>(f + c * FLD + q) =
+      make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// One block per (chunk, head, b), over 64 x 64 frames (i, p) of y: the
+// triangle sum_{j <= i} M[i][j] (x dt)[j][p] from frames of M^T (M = L o
+// CB, formed while filling, the decay selected) and x dt, k over j up to
+// the tile's last row (M is zero past the diagonal, so the chain is
+// unchanged); then the state term sum_n C[i][n] h_c[p][n] from frames of
+// C^T and h_c^T over 64-column blocks of N, the accumulator carried from
+// block to block, so each is one fmaf chain in the parent's order; the
+// triangle waits in M's frame meanwhile, and C^T takes the frame of x dt.
+// y = triangle + exp(cs_i) state term.  Three 64 x FLD frames and the
+// chunk's cs and dt, 52 KiB, and at most 64 registers: four blocks an SM
+// (three read 17 % slower on an H100).
+#define OUT_FRAMES 3
+#define OUT_BLOCKS 4
+
 template <typename T>
-__global__ void __launch_bounds__(MS_THREADS)
+__global__ void __launch_bounds__(MS_THREADS, OUT_BLOCKS)
     ms_out(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ Cm, const float* __restrict__ cs,
            const float* __restrict__ cb, const float* __restrict__ st,
            T* __restrict__ y, int S, int H, int P, int N, int Q) {
   extern __shared__ float sm[];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
-  float* scs = sm;             // [Q]
-  float* sxdt = scs + Q;       // [Q][P]
-  float* sM = sxdt + Q * P;    // [Q][Q] decay-masked C . B^T
-  float* sC = sM + Q * Q;      // [Q][N]
-  float* sH = sC + Q * N;      // [P][N + 1] state entering the chunk
+  const int mt = threadIdx.x >> 4, nt = threadIdx.x & 15;
+  float* sM = sm;                // [64][FLD] M^T [j][i]; then the triangle
+  float* sX = sM + FR * FLD;     // [64][FLD] (x dt) [j][p]; then C^T [n][i]
+  float* sH = sX + FR * FLD;     // [64][FLD] h_c^T [n][p]
+  float* scs = sH + FR * FLD;    // [Qk] cs
+  float* sdt = scs + up4(Q);     // [Qk] dt
   const size_t row0 = (size_t)b * S + (size_t)c * Q;
   const size_t bh = (size_t)b * H + h;
-  for (int q = threadIdx.x; q < Q; q += blockDim.x)
+  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
     scs[q] = cs[bh * S + (size_t)c * Q + q];
-  for (int e = threadIdx.x; e < Q * P; e += blockDim.x) {
-    const int q = e / P, p = e % P;
-    sxdt[e] = to_f(x[((row0 + q) * H + h) * P + p]) * dt[(row0 + q) * H + h];
+    sdt[q] = dt[(row0 + q) * H + h];
   }
-  for (int e = threadIdx.x; e < Q * N; e += blockDim.x)
-    sC[e] = Cm[row0 * N + e];
-  const float* hc = st + (bh * nc + c) * P * N;
-  for (int e = threadIdx.x; e < P * N; e += blockDim.x)
-    sH[(e / N) * (N + 1) + e % N] = hc[e];
-  __syncthreads();
   const float* cbc = cb + ((size_t)b * nc + c) * Q * Q;
-  for (int e = threadIdx.x; e < Q * Q; e += blockDim.x) {
-    const int i = e / Q, j = e % Q;
-    sM[e] = j <= i ? expf(scs[i] - scs[j]) * cbc[e] : 0.f;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < Q * P; e += blockDim.x) {
-    const int i = e / P, p = e % P;
-    float diag = 0.f, off = 0.f;
-    for (int j = 0; j <= i; ++j) diag = fmaf(sM[i * Q + j], sxdt[j * P + p], diag);
-    for (int n = 0; n < N; ++n) off = fmaf(sC[i * N + n], sH[p * (N + 1) + n], off);
-    y[((row0 + i) * H + h) * P + p] = from_f<T>(diag + expf(scs[i]) * off);
-  }
+  const float* hc = st + (bh * nc + c) * (size_t)P * N;
+  for (int fi = 0; fi < Q; fi += FR)
+    for (int fp = 0; fp < P; fp += FR) {
+      float acc[4][4];
+      zero(acc);
+      for (int fj = 0; fj <= fi; fj += FR) {
+        __syncthreads();   // the frames' last readers are done
+        auto in = [&](int i, int j) { return fi + i < Q && fj + j <= fi + i; };
+        const float* cbr = cbc + (size_t)fi * Q + fj;
+        frame_fill([&](int i, int j) {
+          return in(i, j) ? cbr[i * Q + j] : 0.f;
+        }, [&](int i, int j, const float (&v)[4]) {
+          float m[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            m[r] = in(i + r, j)
+                       ? expf(scs[fi + i + r] - scs[fj + j]) * v[r] : 0.f;
+          put_t(sM, i, j, m);
+        });
+        const T* xr = x + ((row0 + fj) * H + h) * P + fp;
+        frame_fill([&](int j, int p) {
+          return fj + j < Q && fp + p < P
+                     ? to_f(xr[(size_t)j * H * P + p]) * sdt[fj + j] : 0.f;
+        }, [&](int j, int p, const float (&v)[4]) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sX[(j + r) * FLD + p] = v[r];
+        });
+        __syncthreads();
+        tile_mm<true, true>(acc, sM, FLD, sX, FLD, mt, nt, 0,
+                            fj < fi ? FR : 4 * mt + 4);
+      }
+      for (int n0 = 0; n0 < N; n0 += FR) {
+        __syncthreads();
+        if (n0 == 0) {   // every thread is past the triangle's product
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            *reinterpret_cast<float4*>(sM + (4 * mt + r) * FLD + 4 * nt) =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          zero(acc);
+        }
+        const float* cr = Cm + (row0 + fi) * N + n0;
+        frame_fill([&](int i, int n) {
+          return fi + i < Q && n0 + n < N ? cr[i * N + n] : 0.f;
+        }, [&](int i, int n, const float (&v)[4]) { put_t(sX, i, n, v); });
+        const float* hr = hc + (size_t)fp * N + n0;
+        frame_fill([&](int p, int n) {
+          return fp + p < P && n0 + n < N ? hr[p * N + n] : 0.f;
+        }, [&](int p, int n, const float (&v)[4]) { put_t(sH, p, n, v); });
+        __syncthreads();
+        tile_mm<true, true>(acc, sX, FLD, sH, FLD, mt, nt, 0,
+                            min(FR, up4(N - n0)));
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = fi + 4 * mt + r;
+        if (i >= Q) continue;
+        const float e = expf(scs[i]);
+        const float4 d =
+            *reinterpret_cast<const float4*>(sM + (4 * mt + r) * FLD + 4 * nt);
+        const float v[4] = {d.x + e * acc[r][0], d.y + e * acc[r][1],
+                            d.z + e * acc[r][2], d.w + e * acc[r][3]};
+        store4(y + ((row0 + i) * H + h) * P + fp, 4 * nt, P - fp, v);
+      }
+    }
 }
 
 // ----------------------------------------------------- 5. chunk gradients
@@ -814,9 +936,8 @@ static size_t states_smem(int P, int N, int Q, bool bwd) {
   return sizeof(float) * (3 * Qk + (size_t)(bwd ? 2 : 1) * Qk *
                                        (frame_ld(P) + frame_ld(N)));
 }
-static size_t out_smem(int P, int N, int Q) {
-  return sizeof(float) * ((size_t)Q + (size_t)Q * P + (size_t)Q * Q +
-                          (size_t)Q * N + (size_t)P * (N + 1));
+static size_t out_smem(int Q) {
+  return sizeof(float) * ((size_t)OUT_FRAMES * FR * FLD + 2 * (size_t)up4(Q));
 }
 static size_t bwd_smem() { return sizeof(float) * BWD_SMEM_FLOATS; }
 
@@ -868,7 +989,7 @@ static int forward(const void* x, const void* dt, const void* A,
       (const float*)Cm, nullptr, nullptr, (float*)cs, (float*)cb,
       (float*)st, nullptr, (float*)hfin, Bsz, S, H, P, N, Q, stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t s4 = out_smem(P, N, Q);
+  const size_t s4 = out_smem(Q);
   if ((err = allow_smem(ms_out<T>, s4)) != cudaSuccess) return (int)err;
   ms_out<T><<<dim3(S / Q, H, Bsz), MS_THREADS, s4, stream>>>(
       (const T*)x, (const float*)dt, (const float*)Cm, (const float*)cs,
@@ -917,7 +1038,7 @@ extern "C" int arms_mamba_scan_smem(int P, int N, int Q, int device,
                                     long long* need, int* limit) {
   size_t m = bwd_smem();
   const size_t others[] = {cb_smem(N, Q), states_smem(P, N, Q, true),
-                           out_smem(P, N, Q)};
+                           out_smem(Q)};
   for (size_t o : others) m = o > m ? o : m;
   *need = (long long)m;
   return (int)cudaDeviceGetAttribute(

@@ -118,20 +118,67 @@ def test_migrate_kernel_vs_plain(card, B, n, R, P, D):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("machine", ["pmem-large", "dram-cxl-pmem"])
-@pytest.mark.parametrize("B,n", [(1, 7), (3, 130), (16, 65536)])
-def test_account_kernel_vs_plain(card, machine, B, n):
+# rows shorter than one CTA's slice; the sweep's 16 x 65,536 and arms_sim's
+# 1 x 65,536 (lanes on clusters); n not a multiple of 4 (the scalar tail,
+# and lane rows off a 16-byte boundary); 2^20 pages (64 words a thread)
+ACCOUNT_SHAPES = [(1, 7), (3, 130), (16, 65536), (1, 65536), (2, 1001),
+                  (4, 65539), (1, 2 ** 20)]
+
+
+def _account_on_card(card, machine, B, n, shared):
+    """The kernel's six outputs (one launch) and the plain version's on
+    the CPU; with ``shared`` the true and oracle rows are lane 0's,
+    broadcast to every lane (lane stride 0), else each lane's own (lane
+    stride n)."""
     pmach, true, tier, up, down, oracle, k = account_case(B, n, machine, n)
-    row, orow = _t(true[0]).to(card), _t(oracle[0]).to(card)
+    if shared:   # expanded on the card: a copy of an expanded row is dense
+        rows = [_t(a[0])[None].expand(B, n) for a in (true, oracle)]
+        on_card = [_t(a[0]).to(card)[None].expand(B, n)
+                   for a in (true, oracle)]
+        assert B == 1 or all(r.stride(0) == 0 for r in on_card)
+    else:
+        rows = [_t(a) for a in (true, oracle)]
+        on_card = [r.to(card) for r in rows]
+        assert all(r.stride(0) == n for r in on_card)
     got = _launches("interval_account", lambda: ops.interval_account(
-        pmach.to(card), row[None].expand(B, n), _t(tier).to(card),
-        _t(up).to(card), _t(down).to(card), orow[None].expand(B, n), k))
-    want = ref.interval_account_ref(
-        pmach, _t(true[0])[None].expand(B, n), _t(tier), _t(up), _t(down),
-        _t(oracle[0])[None].expand(B, n), k)
+        pmach.to(card), on_card[0], _t(tier).to(card),
+        _t(up).to(card), _t(down).to(card), on_card[1], k))
+    want = ref.interval_account_ref(pmach, rows[0], _t(tier), _t(up),
+                                    _t(down), rows[1], k)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "own"])
+@pytest.mark.parametrize("machine", ["pmem-large", "dram-cxl-pmem"])
+@pytest.mark.parametrize("B,n", ACCOUNT_SHAPES)
+def test_account_kernel_vs_plain(card, machine, B, n, shared):
+    got, want = _account_on_card(card, machine, B, n, shared)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("B,n", [(2, 37), (3, 4099), (16, 65536)])
+def test_account_kernel_every_cluster_size(card, monkeypatch, B, n,
+                                           cluster):
+    """A lane over a forced number of CTAs: slices that end ragged, and
+    CTAs with no page at all (37 pages over 16 CTAs of 4 leave six
+    empty), still equal the plain version."""
+    monkeypatch.setitem(kernel._CLUSTERS, (
+        "account", B, n, torch.cuda.current_device()), cluster)
+    for shared in (True, False):
+        got, want = _account_on_card(card, "dram-cxl-pmem", B, n, shared)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+def test_account_spreads_a_lane_over_a_cluster(card, B):
+    """At the replay's 65,536 pages a lane takes more than one CTA."""
+    assert 1 < kernel.account_cluster(B, 65536, card) <= 16
 
 
 @pytest.mark.cuda
@@ -627,6 +674,39 @@ def test_mamba_scan_kernel_edges_f32(card, shape):
     for g, w in zip(grads, wgrads):
         assert g.dtype == w.dtype and g.shape == w.shape
         _within_of_max(g, w, 1e-4 + 8 * ulp)
+
+
+# forward-only shapes past the backward's one frame: P and the chunk over
+# 64 (two frames each way, the second ragged), N off the column blocks
+MAMBA_FWD_SHAPES = [(1, 256, 2, 72, 32, 128), (2, 200, 3, 70, 21, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MAMBA_FWD_SHAPES + [MAMBA_TRAIN_SHAPE])
+def test_mamba_scan_forward_frames_and_repeatable(card, shape, dtype):
+    """The forward over several output frames (and at the training shape)
+    against the plain version in f32 from the same inputs: h_final within
+    2e-5 + 4 ulp(max |cs|) of its largest entry, y too in f32 and within
+    2e-2 absolutely and relatively in bf16; two runs give the same bits."""
+    B, S, H, P, N, Q = shape
+    model_like = shape == MAMBA_TRAIN_SHAPE
+    x, dt, A, Bm, Cm, _, _ = mamba_case(B, S, H, P, N, sum(shape),
+                                        model_like)
+    x = _t(x).to(card, dtype)
+    dt, A, Bm, Cm = (_t(a).to(card) for a in (dt, A, Bm, Cm))
+    y, h = _launches("mamba_scan_fwd", lambda: skernel.mamba_scan_fwd(
+        x, dt, A, Bm, Cm, chunk=Q))
+    wy, wh = sref.mamba_scan_ref(x.float(), dt, A, Bm, Cm, Q)
+    ulp = _cs_ulp(dt, A, Q)
+    assert y.dtype == dtype and y.shape == x.shape
+    _within_of_max(h, wh, 2e-5 + 4 * ulp)
+    if dtype == torch.float32:
+        _within_of_max(y, wy, 2e-5 + 4 * ulp)
+    else:
+        assert bool(((y.float() - wy).abs() <= 2e-2 + 2e-2 * wy.abs()).all())
+    y2, h2 = skernel.mamba_scan_fwd(x, dt, A, Bm, Cm, chunk=Q)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.cuda

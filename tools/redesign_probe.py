@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Device times behind the redesign of ``topk_mask`` and the Mamba2 scan's
-backward, on one NVIDIA GPU.
+"""Device times behind the redesign of the port's kernels (``interval_account``
+and the Mamba2 scan's forward), on one NVIDIA GPU.
 
     python3 tools/redesign_probe.py [--parent DIR] [--only PHASE ...]
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases (all by default):
 
-  ptxas     registers, spills and shared memory of the two sources'
-            kernels (``nvcc -Xptxas -v`` with the port's flags);
+  ptxas     registers, spills and shared memory of the interval-step and
+            scan sources' kernels (``nvcc -Xptxas -v`` with the port's
+            flags);
   ab        the kernels' device times in this tree and in the tree at
             ``--parent`` (a checkout of another commit), each in its own
-            process, in the order parent, this, this, parent: ``topk_mask``
-            at the sweep's 16 x 65,536 (k 8,192), ``arms_sim``'s 1 x 65,536
-            and the serving path's 1 x 32 (k 8), beside ``torch.topk`` +
-            scatter; the scan's forward and backward at mamba2-370m's
-            training shape, and the backward's passes by kernel name under
-            ``torch.profiler``;
-  clusters  ``topk_mask`` at 1, 2, 4, 6, 7, 8 and 16 CTAs a row, at
-            16 x 65,536 and 1 x 65,536, beside the wrapper's choice;
+            process, in the order parent, this, this, parent:
+            ``interval_account`` at the sweep's 16 x 65,536 (``pmem-large``,
+            one true and oracle row shared by the lanes, k 8,192) and
+            ``arms_sim``'s 1 x 65,536 (``dram-cxl-pmem``); the scan's
+            forward and backward at mamba2-370m's training shape, each
+            one's passes by kernel name under ``torch.profiler``, and a
+            digest of one forward's y and h_final, so that a last line
+            says whether this tree's forward gives the parent's bits;
+  clusters  ``interval_account`` at 1, 2, 4, 8, 12 and 16 CTAs a lane, at
+            16 x 65,536 and 1 x 65,536, each held to the plain version bit
+            for bit, beside the wrapper's choice;
   products  one 64 x 64 x 64 product of the scan's backward (4,096 blocks,
             16 times over each block's tiles), f32 register tiles against
             3xTF32 ``mma.sync``, both held to the f64 product
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -67,6 +72,47 @@ def ptxas(out_dir: Path):
             raise SystemExit(proc.stderr)
 
 
+ACCOUNT_SHAPES = ((16, "pmem-large"), (1, "dram-cxl-pmem"))
+PAGES, TOP = 65536, 8192
+
+
+def account_args(lanes: int, machine: str, rng):
+    """``ops.interval_account``'s arguments: one trace row and its top-k
+    oracle shared by ``lanes`` lanes, random tiers and migration counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.interval_step import ref
+    from repro_torch.simulator import machine_spec, machines
+    spec = machines.get(machine)
+    R = spec.n_tiers
+    mach, _ = machine_spec.lane_stack([spec] * lanes, PAGES, TOP, "cuda")
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    true = f((2e7 / PAGES * rng.gamma(1.0, 1.0, PAGES)).astype(np.float32))
+    orc = ref.topk_mask_ref(true[None], TOP)[0]
+    return (mach, true[None].expand(lanes, PAGES),
+            f(rng.integers(0, R, (lanes, PAGES)).astype(np.int32)),
+            f(rng.integers(0, 64, (lanes, R - 1)).astype(np.float32)),
+            f(rng.integers(0, 64, (lanes, R - 1)).astype(np.float32)),
+            orc[None].expand(lanes, PAGES), TOP)
+
+
+def scan_passes(run, calls: int = 5) -> dict:
+    """Device ms of each ``ms_*`` kernel of one ``run()``, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0].removeprefix("void "):
+            e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and "ms_" in e.key}
+
+
 def measure(root: Path):
     """Times in the tree at ``root`` (run in a child process)."""
     sys.path.insert(0, str(root))
@@ -74,24 +120,15 @@ def measure(root: Path):
     import numpy as np
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels.interval_step import kernel
+    from repro_torch.kernels.interval_step import ops
     from repro_torch.kernels.mamba_scan import kernel as skernel
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(0)
     out = {"tree": str(root)}
-    for B, n, k in ((16, 65536, 8192), (1, 65536, 8192), (1, 32, 8)):
-        x = torch.from_numpy((rng.integers(-4, 2000, (B, n)) * 0.5).astype(
-            np.float32)).cuda()
-        x[:, ::97] = -0.0
-
-        def lib(x, k):
-            m = torch.zeros(x.shape, dtype=torch.bool, device="cuda")
-            return m.scatter_(1, torch.topk(x, k, dim=1).indices, True)
-
-        sets = cs.copies((x, k), 5 * B * n)
-        out[f"topk B={B} n={n} k={k}"] = cs.cuda_ms(kernel.topk_mask, sets)
-        out[f"torch.topk+scatter B={B} n={n} k={k}"] = cs.cuda_ms(lib, sets)
+    for lanes, machine in ACCOUNT_SHAPES:
+        args = account_args(lanes, machine, rng)
+        out[f"interval_account B={lanes} n={PAGES} {machine}"] = cs.cuda_ms(
+            ops.interval_account, cs.copies(args, 9 * PAGES * lanes))
     B_, S, H, P, N_, Q = 2, 4096, 32, 64, 128, 64
     f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
                                     ).cuda()
@@ -99,23 +136,20 @@ def measure(root: Path):
     dt = torch.logaddexp(f(B_, S, H), torch.zeros((), device="cuda"))
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
     ins = (x, dt, A, Bm, Cm)
+    y, h = skernel.mamba_scan_fwd(*ins, chunk=Q)
+    torch.cuda.synchronize()
+    out["mamba_scan_fwd digest"] = {
+        nm: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+        for nm, t in (("y", y), ("h_final", h))}
     sets = cs.copies(ins + (dy,), 5 * x.numel() * 4)
     out["mamba_scan_fwd"] = cs.cuda_ms(
         lambda *a: skernel.mamba_scan_fwd(*a[:5], chunk=Q), sets, reps=4)
     out["mamba_scan_bwd"] = cs.cuda_ms(
         lambda *a: skernel.mamba_scan_bwd(*a, chunk=Q), sets, reps=4)
-    skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            skernel.mamba_scan_bwd(*ins, dy, chunk=Q)
-        torch.cuda.synchronize()
-    passes = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                e.self_device_time_total > 0 and "ms_" in e.key:
-            passes[e.key[:60]] = e.self_device_time_total / 1e3 / 5
-    out["mamba_scan_bwd passes ms"] = passes
+    out["mamba_scan_fwd passes ms"] = scan_passes(
+        lambda: skernel.mamba_scan_fwd(*ins, chunk=Q))
+    out["mamba_scan_bwd passes ms"] = scan_passes(
+        lambda: skernel.mamba_scan_bwd(*ins, dy, chunk=Q))
     emit(phase="ab", **out)
 
 
@@ -125,27 +159,24 @@ def clusters():
     import numpy as np
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels.interval_step import kernel, ref
+    from repro_torch.kernels.interval_step import kernel, ops, ref
     rng = np.random.default_rng(1)
-    for B, n, k in ((16, 65536, 8192), (1, 65536, 8192)):
-        x = torch.from_numpy((rng.integers(-4, 2000, (B, n)) * 0.5).astype(
-            np.float32)).cuda()
-        want = ref.topk_mask_ref(x, k)
+    for lanes, machine in ACCOUNT_SHAPES:
+        args = account_args(lanes, machine, rng)
+        want = ref.interval_account_ref(*args)
+        dev = args[2].device
+        key = ("account", lanes, PAGES, dev.index)
+        chosen = kernel.account_cluster(lanes, PAGES, dev)
         row = {}
-        for C in (1, 2, 4, 6, 7, 8, 16):
-            def run(x, k, C=C):
-                m = torch.empty(x.shape, dtype=torch.bool, device="cuda")
-                err = kernel._lib().arms_topk_mask(
-                    x.data_ptr(), m.data_ptr(), B, n, k, C,
-                    kernel._stream(x))
-                if err:
-                    raise RuntimeError(f"cluster {C}: CUDA error {err}")
-                return m
-            same = bool(torch.equal(run(x, k), want))
-            row[C] = (cs.cuda_ms(run, cs.copies((x, k), 5 * B * n)), same)
-        emit(phase="clusters", B=B, n=n, k=k,
-             chosen=kernel.topk_cluster(B, n, x.device),
-             ms_and_equal=row)
+        for C in (1, 2, 4, 8, 12, 16):
+            kernel._CLUSTERS[key] = C
+            same = all(torch.equal(g, w) for g, w in
+                       zip(ops.interval_account(*args), want))
+            row[C] = (cs.cuda_ms(ops.interval_account,
+                                 cs.copies(args, 9 * PAGES * lanes)), same)
+        kernel._CLUSTERS[key] = chosen
+        emit(phase="clusters", B=lanes, n=PAGES, machine=machine,
+             chosen=chosen, ms_and_equal=row)
 
 
 def products(out_dir: Path):
@@ -214,9 +245,21 @@ def main():
     if "ab" in args.only:
         trees = [ROOT] if args.parent is None else \
             [args.parent.resolve(), ROOT, ROOT, args.parent.resolve()]
+        digests = {}
         for tree in trees:
-            subprocess.run([sys.executable, __file__, "--measure", str(tree)],
-                           check=True, env=dict(os.environ))
+            proc = subprocess.run(
+                [sys.executable, __file__, "--measure", str(tree)],
+                capture_output=True, text=True, env=dict(os.environ))
+            print(proc.stdout, end="", flush=True)
+            if proc.returncode:
+                raise SystemExit(proc.stderr)
+            ab = json.loads(proc.stdout.strip().splitlines()[-1])
+            digests.setdefault(str(tree), ab["mamba_scan_fwd digest"])
+        if args.parent is not None:
+            this, parent = (digests[str(t.resolve())]
+                            for t in (ROOT, args.parent))
+            emit(phase="bits", forward_equals_parent=this == parent,
+                 this=this, parent=parent)
     if "clusters" in args.only:
         clusters()
     if "products" in args.only:
