@@ -16,8 +16,8 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      bytes and operations and, where one exists, a PyTorch library call
      computing the same function: the interval-step kernels at 16 lanes,
      n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans (the top-k
-     mask and the accounting also at ``arms_sim``'s one lane, lines of
-     their own); the page
+     mask, the migrations and the accounting also at ``arms_sim``'s one
+     lane, lines of their own); the page
      migration and paged attention at the serving path's full-width
      shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
@@ -51,10 +51,11 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      batch 2 x 4,096 tokens (losses finite; the first batch's loss
      through the kernels within 1e-6 of the run's first loss and within
      1e-2 of the loss with the plain attention); ``torch.profiler``
-     windows give the device busy share and device time by kernel of the
-     sweep, of 64 serving tokens and of one training step, CUDA events
-     split a serving token into model decode and tiered layer and a
-     training step into forward, backward and optimizer; then
+     windows give the device busy share and device time by kernel (the
+     twelve largest and each of the port's) of the sweep, of 32 serving
+     tokens (with the device ms a token) and of one training step, CUDA
+     events split a serving token into model decode and tiered layer and
+     a training step into forward, backward and optimizer; then
      mamba2-370m at its full width and depth (48 layers, d_model 1,024,
      bf16 with f32 ``A_log``/``D``/``dt_bias``, random weights from the
      seed): ``launch.train.train`` for 6 AdamW steps at batch 2 x 4,096
@@ -317,11 +318,15 @@ def kernel_phase(dev, rng):
             perm = rng.permutation(N)[:2 * PLAN]
             plans[0, b] = perm[:PLAN]
             plans[1, b, :PLAN // 2] = perm[PLAN:PLAN + PLAN // 2]
-        args = (tier, f(plans[0]), f(plans[1]), caps)
-        entry("tier_migrate", f"B={B} n={N} R={R} P=D={PLAN}",
-              kernel.tier_migrate, ref.tier_migrate_ref, args, True,
-              nbytes(*args) + nbytes(tier) + 2 * B * PLAN
-              + 8 * B * (R - 1), 4 * B * N)
+        # at the sweep's 16 lanes and, on the 3-tier machine, at arms_sim's
+        # single lane
+        for lanes in (B, 1) if R == 3 else (B,):
+            args = tuple(a[:lanes] for a in (tier, f(plans[0]),
+                                             f(plans[1]), caps))
+            entry("tier_migrate", f"B={lanes} n={N} R={R} P=D={PLAN}",
+                  kernel.tier_migrate, ref.tier_migrate_ref, args, True,
+                  nbytes(*args) + nbytes(args[0]) + 2 * lanes * PLAN
+                  + 8 * lanes * (R - 1), 4 * lanes * N)
 
         # interval_account: one trace row shared by every lane, held to the
         # plain version bit for bit (f64 sums rounded once, the same f32
@@ -1190,9 +1195,16 @@ def profile_window(trace, u, T_: int = 256):
     device_rows(prof, f"profile sweep_arms_configs T={T_}", wall)
 
 
+# the port's own kernels, by the names their sources give them
+PORT_KERNEL = re.compile(r"(void )?(ewma_update|interval_account|tier_migrate"
+                         r"|topk_mask|migrate_kernel|pa_|fa_|ms_)"
+                         r"[a-z_0-9]*[<(]")
+
+
 def device_rows(prof, label: str, wall: float, steps: int = 0):
-    """Print the busy share of ``wall`` and the device time by name (and,
-    given ``steps``, the device kernels and copies a step)."""
+    """Print the busy share of ``wall`` and the device time by name, the
+    twelve largest and every kernel of the port's (and, given ``steps``,
+    the device time and the device kernels and copies a step)."""
     # device-side rows only (kernels, copies): an operator row also carries
     # the device time of the kernels it launched, which would count twice;
     # "Activity Buffer Request" is the profiler's own buffer traffic
@@ -1201,13 +1213,16 @@ def device_rows(prof, label: str, wall: float, steps: int = 0):
               and e.self_device_time_total > 0
               and not e.key.startswith("Activity Buffer")]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    per_step = f" device_ops_per_step={sum(e.count for e in events) / steps}" \
-        if steps else ""
+    per_step = (f" device_ms_per_step={busy * 1e3 / steps:.4f} "
+                f"device_ops_per_step={sum(e.count for e in events) / steps}"
+                if steps else "")
     print(f"{label}: wall_s={wall:.4f} device_busy_s={busy:.4f} "
           f"busy_share={busy / wall:.4f}{per_step}", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  device {e.self_device_time_total / 1e3:9.2f} ms "
-              f"x{e.count:6d}  {e.key[:70]}", flush=True)
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 12 or PORT_KERNEL.match(e.key):
+            print(f"  device {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"x{e.count:6d}  {e.key[:70]}", flush=True)
 
 
 # ---------------------------------------------------------- whole-path check

@@ -24,10 +24,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 #define MAX_TIERS 8
-#define MIGRATE_THREADS 512
 
 static const float kPageBytes = 2097152.0f;  // PAGE_BYTES
 static const float kCacheline = 64.0f;       // CACHELINE
@@ -82,7 +83,7 @@ extern "C" int arms_ewma_update(const float* params, const float* s,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------- block helpers
+// ----------------------------------------------------------- warp helpers
 __device__ __forceinline__ double warp_sum(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
@@ -91,21 +92,6 @@ __device__ __forceinline__ double warp_sum(double v) {
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Sum over the block; the result is valid in thread 0.  `scratch` holds
-// one slot per warp; the call ends with a barrier so it can be reused.
-template <typename T>
-__device__ T block_sum(T v, T* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  T out = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) out += scratch[w];
-  __syncthreads();
-  return out;
 }
 
 // -------------------------------------------------------------- accounting
@@ -306,59 +292,6 @@ __global__ void __launch_bounds__(ACCOUNT_THREADS)
   cluster.sync();   // no CTA leaves while rank 0 may still read its sums
 }
 
-// A launch of `cluster` CTAs a lane over B lanes (grid cluster x B) of
-// `threads` threads and `smem` bytes of dynamic shared memory, with the
-// cluster attributes its kernel needs; `slice` (and, for top-k, whether
-// the slice is resident in shared memory) as the kernel's launcher sets it.
-struct ClusterLaunch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  int slice, resident;
-};
-
-template <typename Kernel>
-static cudaError_t cluster_config(Kernel kernel, int B, int cluster,
-                                  int threads, size_t smem,
-                                  cudaStream_t stream, ClusterLaunch* L) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  L->cfg = cudaLaunchConfig_t{};
-  L->cfg.gridDim = dim3(cluster, B);
-  L->cfg.blockDim = dim3(threads);
-  L->cfg.dynamicSmemBytes = smem;
-  L->cfg.stream = stream;
-  L->attr[0].id = cudaLaunchAttributeClusterDimension;
-  L->attr[0].val.clusterDim.x = cluster;
-  L->attr[0].val.clusterDim.y = 1;
-  L->attr[0].val.clusterDim.z = 1;
-  L->cfg.attrs = L->attr;
-  L->cfg.numAttrs = 1;
-  return err;
-}
-
-// The CTAs a lane takes: the most, up to 16 with slices of at least
-// `min_slice` elements, at which the device holds all B clusters of
-// `kernel` (as `launch` configures it) at once; 1 where it holds none of
-// those.
-template <typename Kernel, typename Launch>
-static int best_cluster(Kernel kernel, Launch launch, int B, int n,
-                        int min_slice, int* cluster) {
-  *cluster = 1;
-  for (int c = 2; c <= 16 && (n + c - 1) / c >= min_slice; ++c) {
-    ClusterLaunch L;
-    cudaError_t err = launch(B, n, c, 0, &L);
-    int active = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&active, kernel, &L.cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (active >= B) *cluster = c;
-  }
-  return (int)cudaSuccess;
-}
-
 static cudaError_t account_launch(int B, int n, int cluster,
                                   cudaStream_t stream, ClusterLaunch* L) {
   if (cluster < 1 || cluster > 16) return cudaErrorInvalidValue;
@@ -369,8 +302,9 @@ static cudaError_t account_launch(int B, int n, int cluster,
 }
 
 extern "C" int arms_account_cluster(int B, int n, int* cluster) {
-  return best_cluster(interval_account_kernel, account_launch, B, n,
-                      ACCOUNT_MIN_SLICE, cluster);
+  return best_cluster(
+      [=](int c, ClusterLaunch* L) { return account_launch(B, n, c, 0, L); },
+      B, max_cluster_for_slice(n, ACCOUNT_MIN_SLICE), cluster);
 }
 
 // `cluster` CTAs a lane (1..16); a cluster the device cannot schedule is
@@ -394,139 +328,297 @@ extern "C" int arms_interval_account(
 // -------------------------------------------------------------- migrations
 // Replaces kernel.py:tier_migrate_kernel (_migrate_body).  Bound: bytes —
 // the tier row read once and written once per lane; the plans (P, D <= a
-// few dozen entries) are negligible.  Design: one block per lane.  All
-// threads copy the row and count tier occupancy (block reduction); the
-// plan's page gathers are done in parallel into shared memory; the
-// order-dependent passes of the Pallas body (departures, landing, the
-// promotion rank) run in one thread over shared memory, which is a few
-// dozen steps; the scatters are parallel again (valid pages of one lane
-// are unique: the padded-index contract).
-__global__ void tier_migrate_kernel(const int* __restrict__ tier,
-                                    const int* __restrict__ promote,
-                                    const int* __restrict__ demote,
-                                    const int* __restrict__ caps,
-                                    int* __restrict__ tier_out,
-                                    uint8_t* __restrict__ pexec,
-                                    uint8_t* __restrict__ dexec,
-                                    int* __restrict__ mig_up,
-                                    int* __restrict__ mig_down, int n, int R,
-                                    int P, int D) {
+// few dozen entries on every path) are negligible.  At the sweep's
+// 16 x 65,536 that is 2.5 us at the HBM rate, so in practice the floor is a
+// cluster launch, one load latency and the plan's few hundred instructions.
+// Design: each lane on a thread-block cluster of C CTAs, C chosen as for the
+// accounting kernel (best_cluster, slices of at least MIGRATE_MIN_SLICE
+// pages), each CTA a contiguous slice of the row:
+//   * Each CTA first stages the plans in shared memory and gathers every
+//     entry's tier from the input row (read only, so no hazard), so those
+//     loads are in flight with the slice's.
+//   * The slice is copied to the output in 16-byte words (a scalar tail, and
+//     a scalar route where a lane's rows are off a 16-byte boundary), each
+//     thread counting its pages in tiers 0..R-2; one shuffle pass and one
+//     pass over the warps give the CTA's counts, which it stores into every
+//     CTA's shared memory (DSMEM).  After one cluster barrier (release /
+//     acquire) each CTA holds every rank's counts and reads nothing remote
+//     again, so no CTA waits for another before it leaves.
+//   * Every CTA then runs the plan itself, in the parallel form of the plain
+//     version (simjax.apply_tier_migrations): for each middle tier r in
+//     ascending order the candidates are the executed demotions with source
+//     < r that have not landed yet; one lands at r when its exclusive rank
+//     among them, in plan order, is below r's slack.  A promotion's source is
+//     its landing tier when the demote plan moved its page, else its tier in
+//     the input row (no read-back of the output); it executes when its
+//     exclusive rank among the valid requests is below tier 0's room.  Warp 0
+//     ranks 32 entries at a time with a ballot and __popc, carrying the count
+//     from one group of 32 to the next, up to MIGRATE_MAX_PLAN entries.  The
+//     ranks equal the Pallas body's sequential walk (kernel.py:134-135:
+//     entry order within a tier matches the cumsum rank).
+//   * Each CTA writes the plan's pages that lie in its own slice, so every
+//     page of the output has one writer, the CTA that copied it: demotions,
+//     a block barrier, then promotions (a page in both plans ends in tier 0,
+//     as apply_down then apply_up).  Rank 0 writes the executed masks and the
+//     crossing counts.
+#define MIGRATE_THREADS 256
+#define MIGRATE_ILP 4             // 16-byte words of a thread in flight
+#define MIGRATE_MIN_SLICE 1024    // fewest pages a CTA of a cluster takes
+#define MIGRATE_MAX_PLAN 1024     // widest plan a lane takes
+
+// One page into a thread's counts of tiers 0..R-2 (the last is not needed).
+__device__ __forceinline__ void count_tier(int (&occ)[MAX_TIERS - 1], int t,
+                                           int R) {
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r)
+    occ[r] += (r < R - 1 && t == r) ? 1 : 0;
+}
+
+// Ballot count of `pred` over the warp.
+__device__ __forceinline__ int warp_count(bool pred) {
+  return __popc(__ballot_sync(0xffffffffu, pred));
+}
+
+__global__ void __launch_bounds__(MIGRATE_THREADS)
+    tier_migrate_kernel(const int* __restrict__ tier,
+                        const int* __restrict__ promote,
+                        const int* __restrict__ demote,
+                        const int* __restrict__ caps,
+                        int* __restrict__ tier_out,
+                        uint8_t* __restrict__ pexec,
+                        uint8_t* __restrict__ dexec,
+                        int* __restrict__ mig_up, int* __restrict__ mig_down,
+                        int n, int R, int P, int D, int slice) {
   extern __shared__ int smem[];
   int* s_dem = smem;          // [D] demote entries
-  int* s_dsrc = s_dem + D;    // [D] their source tiers
-  int* s_dest = s_dsrc + D;   // [D] landing tier, -1 if not executed
+  int* s_dsrc = s_dem + D;    // [D] their tiers in the input row
+  int* s_dest = s_dsrc + D;   // [D] landing tier; 0 not landed yet, -1 not
+                              //     executed
   int* s_prom = s_dest + D;   // [P] promote entries
-  int* s_psrc = s_prom + P;   // [P] their source tiers after demotions
+  int* s_psrc = s_prom + P;   // [P] their tiers after the demotions
   int* s_pex = s_psrc + P;    // [P] executed flags
-  __shared__ int s_occ[MAX_TIERS];
-  __shared__ int s_warp[32];
+  __shared__ int s_warp[MIGRATE_THREADS / 32][MAX_TIERS - 1];
+  __shared__ int s_cnt[16][MAX_TIERS - 1];   // rank q's counts, pushed by q
+  __shared__ int s_room;
 
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  cluster_arrive_relaxed();   // once it completes, every CTA has started
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned int below = (1u << lane) - 1u;   // lanes under this one
+  const int b = blockIdx.y;
   const int* row = tier + (int64_t)b * n;
   int* orow = tier_out + (int64_t)b * n;
-  const int* prow = promote + (int64_t)b * P;
-  const int* drow = demote + (int64_t)b * D;
   const int* cap = caps + b * R;
+  const int64_t start = (int64_t)rank * slice;
+  const int64_t left = (int64_t)n - start;
+  const int len = left <= 0 ? 0 : (left < slice ? (int)left : slice);
 
-  int occ[MAX_TIERS];
-#pragma unroll
-  for (int r = 0; r < MAX_TIERS; ++r) occ[r] = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int t = row[i];
-    orow[i] = t;
-#pragma unroll
-    for (int r = 0; r < MAX_TIERS; ++r) occ[r] += (r < R && t == r) ? 1 : 0;
-  }
-#pragma unroll
-  for (int r = 0; r < MAX_TIERS; ++r) {
-    if (r < R) {
-      const int v = block_sum(occ[r], s_warp);
-      if (threadIdx.x == 0) s_occ[r] = v;
-    }
-  }
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const int d = drow[i];
+  for (int i = tid; i < D; i += MIGRATE_THREADS) {
+    const int d = demote[(int64_t)b * D + i];
     s_dem[i] = d;
-    s_dsrc[i] = row[d >= 0 ? d : 0];
+    s_dsrc[i] = d >= 0 ? row[d] : R - 1;
   }
-  for (int i = threadIdx.x; i < P; i += blockDim.x) s_prom[i] = prow[i];
-  __syncthreads();
+  for (int j = tid; j < P; j += MIGRATE_THREADS) {
+    const int p = promote[(int64_t)b * P + j];
+    s_prom[j] = p;
+    s_psrc[j] = p >= 0 ? row[p] : 0;
+  }
 
-  // departures + landing tiers (sources from the ORIGINAL placement).
-  if (threadIdx.x == 0) {
-    int dep[MAX_TIERS], slack[MAX_TIERS], land[MAX_TIERS];
-    for (int r = 0; r < R; ++r) dep[r] = land[r] = 0;
-    for (int i = 0; i < D; ++i) {
-      const int src = s_dsrc[i];
-      if (s_dem[i] >= 0 && src < R - 1) dep[src] += 1;
-    }
-    for (int r = 1; r < R - 1; ++r) slack[r] = cap[r] - (s_occ[r] - dep[r]);
-    int down[MAX_TIERS], occ0 = s_occ[0];
-    for (int j = 0; j < R - 1; ++j) down[j] = 0;
-    for (int i = 0; i < D; ++i) {
-      const int src = s_dsrc[i];
-      const bool dx = s_dem[i] >= 0 && src < R - 1;
-      int dest = R - 1;
-      for (int r = R - 2; r > 0; --r)  // lowest r > src with room wins
-        if (src < r && slack[r] - land[r] > 0) dest = r;
-      if (!dx) dest = R - 1;
-      s_dest[i] = dx ? dest : -1;
-      if (dx) {
-        land[dest] += 1;
-        if (src == 0) occ0 -= 1;
-        for (int j = 0; j < R - 1; ++j)
-          if (src <= j && dest > j) down[j] += 1;
+  // the slice: copied, and counted by tier
+  int occ[MAX_TIERS - 1];
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r) occ[r] = 0;
+  const int* src = row + start;
+  int* dst = orow + start;
+  int done = 0;
+  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+    const int nv = len / 4;
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int v0 = tid; v0 < nv; v0 += MIGRATE_ILP * MIGRATE_THREADS) {
+      int4 t[MIGRATE_ILP];
+#pragma unroll
+      for (int u = 0; u < MIGRATE_ILP; ++u)
+        if (v0 + u * MIGRATE_THREADS < nv) t[u] = s4[v0 + u * MIGRATE_THREADS];
+#pragma unroll
+      for (int u = 0; u < MIGRATE_ILP; ++u) {
+        if (v0 + u * MIGRATE_THREADS < nv) {
+          d4[v0 + u * MIGRATE_THREADS] = t[u];
+          count_tier(occ, t[u].x, R);
+          count_tier(occ, t[u].y, R);
+          count_tier(occ, t[u].z, R);
+          count_tier(occ, t[u].w, R);
+        }
       }
     }
-    for (int j = 0; j < R - 1; ++j) mig_down[b * (R - 1) + j] = down[j];
-    s_occ[0] = occ0;  // tier-0 occupancy after demotions
+    done = nv * 4;
+  }
+  for (int i = done + tid; i < len; i += MIGRATE_THREADS) {
+    const int t = src[i];
+    dst[i] = t;
+    count_tier(occ, t, R);
+  }
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r)
+    if (r < R - 1) occ[r] = warp_sum(occ[r]);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < MAX_TIERS - 1; ++r)
+      if (r < R - 1) s_warp[warp][r] = occ[r];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const int dest = s_dest[i];
-    dexec[(int64_t)b * D + i] = dest >= 0 ? 1 : 0;
-    if (dest >= 0) orow[s_dem[i]] = dest;
+  cluster_wait();   // every CTA has started: its shared memory may be written
+  if (tid < R - 1) {
+    int v = 0;
+    for (int w = 0; w < MIGRATE_THREADS / 32; ++w) v += s_warp[w][tid];
+    for (int q = 0; q < csize; ++q)
+      cluster.map_shared_rank(&s_cnt[rank][tid], q)[0] = v;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int p = s_prom[i];
-    s_psrc[i] = orow[p >= 0 ? p : 0];
+  cluster_arrive_release();
+  cluster_wait();   // every rank's counts are here; nothing remote after this
+
+  // departures and landing tiers (warp 0; every lane holds the lane's counts)
+  if (warp == 0) {
+    int occ_l[MAX_TIERS - 1], dep[MAX_TIERS - 1], down[MAX_TIERS - 1];
+#pragma unroll
+    for (int r = 0; r < MAX_TIERS - 1; ++r) {
+      occ_l[r] = dep[r] = down[r] = 0;
+      if (r < R - 1)
+        for (int q = 0; q < csize; ++q) occ_l[r] += s_cnt[q][r];
+    }
+    for (int base = 0; base < D; base += 32) {
+      const int i = base + lane;
+      const int sr = i < D ? s_dsrc[i] : R - 1;
+      const bool dx = i < D && s_dem[i] >= 0 && sr < R - 1;
+#pragma unroll
+      for (int r = 0; r < MAX_TIERS - 1; ++r)
+        if (r < R - 1) dep[r] += warp_count(dx && sr == r);
+      if (i < D) s_dest[i] = dx ? 0 : -1;
+    }
+    for (int r = 1; r < R - 1; ++r) {   // middle tiers, lowest first
+      int slack = 0;
+#pragma unroll
+      for (int x = 1; x < MAX_TIERS - 1; ++x)
+        if (x == r) slack = cap[r] - (occ_l[x] - dep[x]);
+      int carry = 0;
+      for (int base = 0; base < D; base += 32) {
+        const int i = base + lane;
+        const bool cand = i < D && s_dest[i] == 0 && s_dsrc[i] < r;
+        const unsigned int m = __ballot_sync(0xffffffffu, cand);
+        if (cand && carry + __popc(m & below) < slack) s_dest[i] = r;
+        carry += __popc(m);
+      }
+    }
+    for (int base = 0; base < D; base += 32) {
+      const int i = base + lane;
+      int dest = i < D ? s_dest[i] : -1;
+      if (dest == 0) {   // no middle tier had room: the bottom tier
+        dest = R - 1;
+        s_dest[i] = dest;
+      }
+      const int sr = i < D ? s_dsrc[i] : 0;
+#pragma unroll
+      for (int j = 0; j < MAX_TIERS - 1; ++j)
+        if (j < R - 1) down[j] += warp_count(dest > 0 && sr <= j && dest > j);
+      if (rank == 0 && i < D) dexec[(int64_t)b * D + i] = dest > 0 ? 1 : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < MAX_TIERS - 1; ++j)
+      if (rank == 0 && j < R - 1 && lane == j)
+        mig_down[b * (R - 1) + j] = down[j];
+    if (lane == 0) s_room = cap[0] - (occ_l[0] - dep[0]);
   }
   __syncthreads();
 
-  // promotion rank: every valid request counts, executed ones fit the room.
-  if (threadIdx.x == 0) {
-    const int room0 = cap[0] - s_occ[0];
-    int up[MAX_TIERS], cnt = 0;
-    for (int j = 0; j < R - 1; ++j) up[j] = 0;
-    for (int i = 0; i < P; ++i) {
-      const int src = s_psrc[i];
-      const bool ok = s_prom[i] >= 0 && src > 0;
-      const bool ex = ok && cnt < room0;
-      s_pex[i] = ex ? 1 : 0;
-      if (ex)
-        for (int j = 0; j < R - 1; ++j)
-          if (src > j) up[j] += 1;
-      cnt += ok ? 1 : 0;
+  // promotion sources after the demotions: the landing tier of a page the
+  // demote plan moved (valid entries are unique: at most one match)
+  for (int j = tid; j < P; j += MIGRATE_THREADS) {
+    const int p = s_prom[j];
+    if (p < 0) continue;
+    for (int i = 0; i < D; ++i) {
+      if (s_dem[i] == p) {
+        if (s_dest[i] > 0) s_psrc[j] = s_dest[i];
+        break;
+      }
     }
-    for (int j = 0; j < R - 1; ++j) mig_up[b * (R - 1) + j] = up[j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    pexec[(int64_t)b * P + i] = (uint8_t)s_pex[i];
-    if (s_pex[i]) orow[s_prom[i]] = 0;
+
+  // promotion ranks: every valid request counts, the executed fit the room
+  if (warp == 0) {
+    const int room = s_room;
+    int carry = 0, up[MAX_TIERS - 1];
+#pragma unroll
+    for (int j = 0; j < MAX_TIERS - 1; ++j) up[j] = 0;
+    for (int base = 0; base < P; base += 32) {
+      const int j = base + lane;
+      const int sr = j < P ? s_psrc[j] : 0;
+      const bool ok = j < P && s_prom[j] >= 0 && sr > 0;
+      const unsigned int m = __ballot_sync(0xffffffffu, ok);
+      const bool ex = ok && carry + __popc(m & below) < room;
+      carry += __popc(m);
+      if (j < P) s_pex[j] = ex ? 1 : 0;
+      if (rank == 0 && j < P) pexec[(int64_t)b * P + j] = ex ? 1 : 0;
+#pragma unroll
+      for (int x = 0; x < MAX_TIERS - 1; ++x)
+        if (x < R - 1) up[x] += warp_count(ex && sr > x);
+    }
+#pragma unroll
+    for (int x = 0; x < MAX_TIERS - 1; ++x)
+      if (rank == 0 && x < R - 1 && lane == x) mig_up[b * (R - 1) + x] = up[x];
+  }
+  __syncthreads();
+
+  // the plan's pages in this CTA's slice: demotions, then promotions
+  for (int i = tid; i < D; i += MIGRATE_THREADS) {
+    const int d = s_dem[i];
+    if (s_dest[i] > 0 && d >= start && d < start + len) orow[d] = s_dest[i];
+  }
+  __syncthreads();
+  for (int j = tid; j < P; j += MIGRATE_THREADS) {
+    const int p = s_prom[j];
+    if (s_pex[j] && p >= start && p < start + len) orow[p] = 0;
   }
 }
 
+static cudaError_t migrate_launch(int B, int n, int cluster, int P, int D,
+                                  cudaStream_t stream, ClusterLaunch* L) {
+  if (cluster < 1 || cluster > 16 || P < 0 || D < 0 ||
+      P > MIGRATE_MAX_PLAN || D > MIGRATE_MAX_PLAN)
+    return cudaErrorInvalidValue;
+  // slices start on a 16-byte boundary of a lane's rows
+  L->slice = ((n + cluster - 1) / cluster + 3) / 4 * 4;
+  return cluster_config(tier_migrate_kernel, B, cluster, MIGRATE_THREADS,
+                        sizeof(int) * 3 * ((size_t)P + (size_t)D), stream, L);
+}
+
+extern "C" int arms_migrate_cluster(int B, int n, int* cluster) {
+  // sized for the widest plans, so the choice holds for any plan width
+  return best_cluster(
+      [=](int c, ClusterLaunch* L) {
+        return migrate_launch(B, n, c, MIGRATE_MAX_PLAN, MIGRATE_MAX_PLAN, 0,
+                              L);
+      },
+      B, max_cluster_for_slice(n, MIGRATE_MIN_SLICE), cluster);
+}
+
+// `cluster` CTAs a lane (1..16); a cluster the device cannot schedule is
+// refused here, and the caller raises.
 extern "C" int arms_tier_migrate(const int* tier, const int* promote,
                                  const int* demote, const int* caps,
                                  int* tier_out, uint8_t* pexec, uint8_t* dexec,
                                  int* mig_up, int* mig_down, int B, int n,
-                                 int R, int P, int D, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * (3 * (size_t)D + 3 * (size_t)P);
-  tier_migrate_kernel<<<B, MIGRATE_THREADS, smem, stream>>>(
-      tier, promote, demote, caps, tier_out, pexec, dexec, mig_up, mig_down,
-      n, R, P, D);
+                                 int R, int P, int D, int cluster,
+                                 cudaStream_t stream) {
+  ClusterLaunch L;
+  cudaError_t err = migrate_launch(B, n, cluster, P, D, stream, &L);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&L.cfg, tier_migrate_kernel, tier, promote, demote,
+                           caps, tier_out, pexec, dexec, mig_up, mig_down, n,
+                           R, P, D, L.slice);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -776,14 +868,14 @@ __global__ void __launch_bounds__(TOPK_THREADS, 1)
 }
 
 // The launch of `cluster` CTAs a row over B rows of n keys: the slice a CTA
-// takes, and whether it stays in shared memory.
+// takes, and whether it stays in shared memory (`mode`).
 static cudaError_t topk_launch(int B, int n, int cluster, cudaStream_t stream,
                                ClusterLaunch* L) {
   if (cluster < 1 || cluster > 16) return cudaErrorInvalidValue;
   L->slice = (n + cluster - 1) / cluster;
   L->slice = (L->slice + TOPK_RUN - 1) / TOPK_RUN * TOPK_RUN;
-  L->resident = L->slice <= TOPK_SMEM_KEYS ? 1 : 0;
-  const size_t smem = L->resident ? sizeof(uint32_t) * (size_t)L->slice : 0;
+  L->mode = L->slice <= TOPK_SMEM_KEYS ? 1 : 0;
+  const size_t smem = L->mode ? sizeof(uint32_t) * (size_t)L->slice : 0;
   // a row of one CTA takes 16 keys a thread, 256 threads at least (one a
   // bin); a cluster's CTAs take 1,024 threads, one CTA an SM
   int threads = TOPK_THREADS;
@@ -797,8 +889,9 @@ static cudaError_t topk_launch(int B, int n, int cluster, cudaStream_t stream,
 }
 
 extern "C" int arms_topk_cluster(int B, int n, int* cluster) {
-  return best_cluster(topk_mask_kernel, topk_launch, B, n, TOPK_MIN_SLICE,
-                      cluster);
+  return best_cluster(
+      [=](int c, ClusterLaunch* L) { return topk_launch(B, n, c, 0, L); }, B,
+      max_cluster_for_slice(n, TOPK_MIN_SLICE), cluster);
 }
 
 // `cluster` CTAs a row (1..16); a cluster the device cannot schedule is
@@ -809,7 +902,7 @@ extern "C" int arms_topk_mask(const float* x, uint8_t* mask, int B, int n,
   cudaError_t err = topk_launch(B, n, cluster, stream, &L);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&L.cfg, topk_mask_kernel, x, mask, n, k, L.slice,
-                           L.resident);
+                           L.mode);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,7 @@ from repro_torch.kernels import _backend
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "interval_step.cu"
 MAX_TIERS = 8
-MAX_PLAN = 1024   # per-lane plan width a migrate block handles
+MAX_PLAN = 1024   # per-lane plan width the migration kernel takes
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -28,7 +28,8 @@ _SIGNATURES = {
     "arms_interval_account": [_P] * 5 + [_I64] + [_P] * 4 + [_I64, _P]
     + [_I] * 5 + [_P],
     "arms_account_cluster": [_I, _I, ctypes.POINTER(_I)],
-    "arms_tier_migrate": [_P] * 9 + [_I] * 5 + [_P],
+    "arms_tier_migrate": [_P] * 9 + [_I] * 6 + [_P],
+    "arms_migrate_cluster": [_I, _I, ctypes.POINTER(_I)],
     "arms_topk_mask": [_P, _P, _I, _I, _I, _I, _P],
     "arms_topk_cluster": [_I, _I, ctypes.POINTER(_I)],
 }
@@ -129,7 +130,8 @@ def interval_account(lat, br, bw, mlp, true, tier, mig_up, mig_down, oracle,
 def tier_migrate(tier, promote, demote, caps):
     """Hop-chain migrations on the card: tier i32 [B, n], promote i32
     [B, P], demote i32 [B, D] (padded-index plans, valid entries unique),
-    caps i32 [B, R].  Returns (tier, pexec, dexec, mig_up, mig_down)."""
+    caps i32 [B, R].  Returns (tier, pexec, dexec, mig_up, mig_down); the
+    input row is not changed."""
     B, n = tier.shape
     P, D, R = promote.shape[1], demote.shape[1], caps.shape[-1]
     dev = tier.device
@@ -150,29 +152,19 @@ def tier_migrate(tier, promote, demote, caps):
         tier.data_ptr(), promote.data_ptr(), demote.data_ptr(),
         caps.data_ptr(), new_tier.data_ptr(), pexec.data_ptr(),
         dexec.data_ptr(), mig_up.data_ptr(), mig_down.data_ptr(), B, n, R,
-        P, D, _stream(tier))
+        P, D, migrate_cluster(B, n, dev), _stream(tier))
     _done("tier_migrate", err)
     return new_tier, pexec, dexec, mig_up, mig_down
 
 
-_CLUSTERS: dict = {}
+def cluster_key(kind: str, B: int, n: int, device) -> tuple:
+    """Key of ``_backend.clusters`` for the ``kind`` kernel (``topk``,
+    ``account`` or ``migrate``) at B lanes of n pages on ``device``."""
+    return _backend.cluster_key(f"arms_{kind}_cluster", (B, n), device)
 
 
 def _cluster(kind: str, B: int, n: int, device) -> int:
-    """CTAs a lane of the ``kind`` kernel (``topk`` or ``account``) spreads
-    over on ``device``: the library's choice from the device's cluster
-    occupancy, kept per shape."""
-    key = (kind, B, n, torch.device(device).index)
-    if key not in _CLUSTERS:
-        got = _I()
-        with torch.cuda.device(device):
-            err = getattr(_lib(), f"arms_{kind}_cluster")(
-                B, n, ctypes.byref(got))
-        if err != 0:
-            raise RuntimeError(f"{kind}: CUDA error {err} reading the "
-                               f"device's cluster occupancy")
-        _CLUSTERS[key] = got.value
-    return _CLUSTERS[key]
+    return _backend.cluster(_lib(), f"arms_{kind}_cluster", (B, n), device)
 
 
 def topk_cluster(B: int, n: int, device) -> int:
@@ -183,6 +175,11 @@ def topk_cluster(B: int, n: int, device) -> int:
 def account_cluster(B: int, n: int, device) -> int:
     """CTAs a lane of the accounting kernel spreads over on ``device``."""
     return _cluster("account", B, n, device)
+
+
+def migrate_cluster(B: int, n: int, device) -> int:
+    """CTAs a lane of the migration kernel spreads over on ``device``."""
+    return _cluster("migrate", B, n, device)
 
 
 def topk_mask(x, k: int):

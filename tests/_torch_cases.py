@@ -34,6 +34,40 @@ def migrate_case(B, n, R, P, D, seed):
     return tier, promote, demote, caps
 
 
+def migrate_edge_case(B, n, R, P, D, seed, kind):
+    """(tier, promote, demote, caps) at the edges the migration kernel is
+    held to.  ``both``: about half of each lane's demote entries name pages
+    its promote plan names too (some of them in tier 0, so a page demoted
+    from tier 0 may be promoted back), room enough for some promotions;
+    ``tight``: tier 0 over its cap (room <= 0 after the departures) and the
+    middle tiers over theirs (negative slack); ``invalid``: every entry
+    -1.  Valid entries stay unique within each plan."""
+    rng = np.random.default_rng(seed)
+    tier = rng.integers(0, R, (B, n)).astype(np.int32)
+    promote = np.full((B, P), -1, np.int32)
+    demote = np.full((B, D), -1, np.int32)
+    occ = np.stack([(tier == r).sum(1) for r in range(R)], 1)
+    if kind == "both":
+        for b in range(B):
+            perm = rng.permutation(n)
+            npro = min(P, n)
+            promote[b, :npro] = perm[:npro]
+            shared = perm[:min(D // 2, npro)]
+            fresh = perm[npro:npro + min(D - shared.size, n - npro)]
+            pick = np.concatenate([shared, fresh])
+            demote[b, :pick.size] = rng.permutation(pick)
+        caps = occ + rng.integers(-2, max(3, P // 2), (B, R))
+    elif kind == "tight":
+        promote, demote = plans(rng, B, n, P, D)
+        caps = occ - rng.integers(D + 1, D + 8, (B, R))
+    elif kind == "invalid":
+        caps = occ + rng.integers(1, n + 1, (B, R))
+    else:
+        raise ValueError(kind)
+    caps[:, -1] = n
+    return tier, promote, demote, caps.astype(np.int32)
+
+
 def account_case(B, n, machine, seed):
     """(port machine lanes, true, tier, mig_up, mig_down, oracle, k); the
     rows are numpy arrays."""
@@ -57,6 +91,14 @@ MIGRATE_SHAPES = [(16, 8, 4, 16, 128), (4, 4, 4, 8, 256),
 # (B, H, KV, dh, page, n_pp): the shapes of tests/test_kernels.py.
 PAGED_SHAPES = [(2, 8, 4, 128, 16, 4), (1, 4, 4, 64, 32, 2),
                 (3, 16, 2, 128, 8, 8), (2, 8, 8, 128, 64, 2)]
+# (B, H, KV, dh, page, n_pp): tables of 1, 5 and 33 entries (no multiple
+# of a cluster of CTAs), head_dim 256 and 6 (not a multiple of 16 bytes),
+# head_dim 320 and 1,002 (more than one column block of a CTA), 3 query
+# rows a KV head (no multiple of the rows a pass serves).
+PAGED_EDGE_SHAPES = [(2, 8, 4, 128, 16, 1), (2, 8, 2, 64, 16, 5),
+                     (1, 16, 4, 128, 16, 33), (1, 8, 2, 256, 16, 4),
+                     (2, 4, 2, 6, 8, 3), (1, 8, 2, 320, 16, 3),
+                     (1, 4, 4, 1002, 8, 2), (2, 6, 2, 64, 16, 7)]
 
 
 def migrate_pools_case(Ps, Pd, M, page, feat, seed, dtype=np.float32):
@@ -73,15 +115,17 @@ def migrate_pools_case(Ps, Pd, M, page, feat, seed, dtype=np.float32):
     return src, dst, src_idx, dst_idx, valid
 
 
-def paged_case(B, H, KV, dh, page, n_pp, seed, lens=None):
+def paged_case(B, H, KV, dh, page, n_pp, seed, lens=None, pool=None):
     """(q, k_pages, v_pages, tables, lens) f32 numpy arrays over a pool of
-    ``n_pp * B + 3`` pages, distinct table entries."""
+    ``n_pp * B + 3`` pages, distinct table entries; or, with ``pool``, over
+    that many pages, entries drawn with repeats (long tables)."""
     rng = np.random.default_rng(seed)
-    P = n_pp * B + 3
+    P = n_pp * B + 3 if pool is None else pool
     q = rng.standard_normal((B, H, dh)).astype(np.float32)
     k = rng.standard_normal((P, page, KV, dh)).astype(np.float32)
     v = rng.standard_normal((P, page, KV, dh)).astype(np.float32)
-    tables = rng.choice(P, (B, n_pp), replace=False).astype(np.int32)
+    tables = rng.choice(P, (B, n_pp), replace=pool is not None).astype(
+        np.int32)
     if lens is None:
         lens = rng.integers(1, n_pp * page + 1, B)
     return q, k, v, tables, np.asarray(lens, np.int32)

@@ -20,7 +20,7 @@ import torch
 from repro.kernels.interval_step import kernel as jkernel
 from repro.kernels.interval_step import ref as jref
 from repro.simulator import scan_engine as jscan
-from _torch_cases import account_case, migrate_case
+from _torch_cases import account_case, migrate_case, migrate_edge_case
 from _torch_cases import t as _t
 from repro_torch.kernels.interval_step import ops, ref
 
@@ -90,6 +90,34 @@ class TestTierMigrate:
                                         "down")):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w),
                                           err_msg=nm)
+
+    @pytest.mark.parametrize("kind", ["both", "tight", "invalid"])
+    @pytest.mark.parametrize("B,n,R,P,D",
+                             [(3, 29, 3, 5, 5), (2, 64, 8, 16, 16),
+                              (2, 37, 4, 0, 6), (2, 37, 4, 6, 0),
+                              (2, 5, 3, 0, 0)])
+    def test_edges_match_jax(self, B, n, R, P, D, kind):
+        """The edges the CUDA kernel is held to: pages in both plans, all
+        eight tiers, room and slack at or below 0, zero-width and
+        all-invalid plans."""
+        case = migrate_edge_case(B, n, R, P, D, B + n + R + P, kind)
+        want = jref.tier_migrate_ref(*map(jnp.asarray, case))
+        got = ops.tier_migrate(*map(_t, case))
+        for g, w, nm in zip(got, want, ("tier", "pexec", "dexec", "up",
+                                        "down")):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=nm)
+
+    @pytest.mark.parametrize("kind,shape", [("both", (2, 64, 8, 16, 16)),
+                                            ("both", (2, 37, 4, 0, 6)),
+                                            ("tight", (2, 37, 4, 6, 0))])
+    def test_pallas_interpret_edges(self, kind, shape):
+        case = migrate_edge_case(*shape, 5, kind)
+        want = jkernel.tier_migrate_kernel(*map(jnp.asarray, case),
+                                           interpret=True)
+        got = ref.tier_migrate_ref(*map(_t, case))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
     def test_pallas_interpret_case(self):
         tier, promote, demote, caps = migrate_case(3, 29, 3, 5, 5, 11)

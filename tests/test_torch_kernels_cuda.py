@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import account_case, migrate_case
+from _torch_cases import account_case, migrate_case, migrate_edge_case
 from _torch_cases import t as _t
 from repro_torch.kernels import _backend
 from repro_torch.kernels.interval_step import kernel, ops, ref
@@ -105,17 +105,70 @@ def test_topk_kernel_vs_plain(card, B, n, k, kind):
     assert torch.equal(got.cpu(), ref.topk_mask_ref(_t(x), k))
 
 
+def _migrate_on_card(card, case):
+    """The kernel's five outputs (one launch, the input row unchanged) and
+    the plain version's on the CPU."""
+    args = [_t(a).to(card) for a in case]
+    row = args[0].clone()
+    got = _launches("tier_migrate", lambda: kernel.tier_migrate(*args))
+    assert torch.equal(args[0], row)
+    return got, ref.tier_migrate_ref(*(_t(a) for a in case))
+
+
+# rows shorter than one CTA's slice; the sweep's 16 x 65,536 at 2 and 3
+# tiers and arms_sim's 1 x 65,536 (lanes on clusters); 8 tiers with n not a
+# multiple of 4; plans of MAX_PLAN entries
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,R,P,D", [(2, 13, 2, 3, 4), (3, 29, 3, 5, 5),
                                        (4, 64, 4, 8, 8),
-                                       (16, 65536, 3, 64, 64)])
+                                       (16, 65536, 3, 64, 64),
+                                       (16, 65536, 2, 64, 64),
+                                       (1, 65536, 3, 64, 64),
+                                       (3, 4099, 8, 64, 64),
+                                       (2, 5001, 5, 1024, 1024)])
 def test_migrate_kernel_vs_plain(card, B, n, R, P, D):
-    case = migrate_case(B, n, R, P, D, n + R)
-    got = _launches("tier_migrate", lambda: kernel.tier_migrate(
-        *(_t(a).to(card) for a in case)))
-    want = ref.tier_migrate_ref(*(_t(a) for a in case))
+    got, want = _migrate_on_card(card, migrate_case(B, n, R, P, D, n + R))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["both", "tight", "invalid"])
+@pytest.mark.parametrize("B,n,R,P,D", [(2, 13, 2, 4, 4), (3, 4099, 8, 64, 64),
+                                       (1, 65536, 3, 64, 64),
+                                       (2, 37, 4, 0, 6), (2, 37, 4, 6, 0),
+                                       (2, 5, 3, 0, 0)])
+def test_migrate_kernel_edges(card, B, n, R, P, D, kind):
+    """Pages in both plans (the promotion's write wins), tier 0's room and
+    the middle tiers' slack at or below 0, zero-width and all-invalid
+    plans, at rows below one CTA's slice and on clusters."""
+    got, want = _migrate_on_card(
+        card, migrate_edge_case(B, n, R, P, D, n + R + P, kind))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("B,n", [(2, 37), (3, 4099), (16, 65536)])
+def test_migrate_kernel_every_cluster_size(card, monkeypatch, B, n,
+                                           cluster):
+    """A lane over a forced number of CTAs: slices that end ragged, CTAs
+    with no page at all, and plan pages in every CTA's slice."""
+    monkeypatch.setitem(_backend.clusters, kernel.cluster_key(
+        "migrate", B, n, torch.cuda.current_device()), cluster)
+    for case in (migrate_case(B, n, 4, 64, 64, n),
+                 migrate_edge_case(B, n, 4, 64, 64, n, "both")):
+        got, want = _migrate_on_card(card, case)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+def test_migrate_spreads_a_lane_over_a_cluster(card, B):
+    """At the replay's 65,536 pages a lane takes more than one CTA."""
+    assert 1 < kernel.migrate_cluster(B, 65536, card) <= 16
 
 
 # rows shorter than one CTA's slice; the sweep's 16 x 65,536 and arms_sim's
@@ -166,7 +219,7 @@ def test_account_kernel_every_cluster_size(card, monkeypatch, B, n,
     """A lane over a forced number of CTAs: slices that end ragged, and
     CTAs with no page at all (37 pages over 16 CTAs of 4 leave six
     empty), still equal the plain version."""
-    monkeypatch.setitem(kernel._CLUSTERS, (
+    monkeypatch.setitem(_backend.clusters, kernel.cluster_key(
         "account", B, n, torch.cuda.current_device()), cluster)
     for shared in (True, False):
         got, want = _account_on_card(card, "dram-cxl-pmem", B, n, shared)
@@ -210,8 +263,8 @@ def test_wrappers_reject_bad_inputs(card):
 
 
 # ------------------------------------------------------------------ migrate
-from _torch_cases import (MIGRATE_SHAPES, PAGED_SHAPES,  # noqa: E402
-                          migrate_pools_case, paged_case)
+from _torch_cases import (MIGRATE_SHAPES, PAGED_EDGE_SHAPES,  # noqa: E402
+                          PAGED_SHAPES, migrate_pools_case, paged_case)
 from repro_torch.kernels.migrate import kernel as mkernel  # noqa: E402
 from repro_torch.kernels.migrate import ops as mops  # noqa: E402
 from repro_torch.kernels.migrate import ref as mref  # noqa: E402
@@ -291,8 +344,11 @@ def test_paged_attention_kernel_vs_plain(card, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", PAGED_SHAPES[:2])
+@pytest.mark.parametrize("shape", PAGED_SHAPES[:2] + [
+    (1, 8, 2, 320, 16, 3), (1, 4, 4, 1002, 8, 2), (2, 8, 2, 640, 16, 5)])
 def test_paged_attention_kernel_bf16(card, shape):
+    """Also head_dim past one column block of a CTA in bf16 (512
+    elements)."""
     (out, mass), (w_out, w_mass) = _paged_on_card(
         card, paged_case(*shape, seed=sum(shape)), torch.bfloat16)
     assert out.dtype == torch.bfloat16
@@ -312,6 +368,104 @@ def test_paged_attention_serve_fold_bitwise_repeatable(card, pos):
     _close(mass, w_mass, 1e-5)
     assert not mass[0, pos // 16 + 1:].any()
     (out2, mass2), _ = _paged_on_card(card, case)
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+
+
+def _masked_pages_carry_no_mass(mass, lens, page):
+    for b, n in enumerate(lens):
+        if n > 0:
+            assert not mass[b, -(-int(n) // page):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAGED_EDGE_SHAPES)
+def test_paged_attention_kernel_edges(card, shape):
+    """Tables no cluster divides, two 16-byte words a lane (head_dim 256),
+    element loads without staging (head_dim 6), more than one column block
+    (head_dim 320 and 1,002) and 3 query rows a KV head."""
+    case = paged_case(*shape, seed=sum(shape))
+    (out, mass), (w_out, w_mass) = _paged_on_card(card, case)
+    _close(out, w_out, 1e-5)
+    _close(mass, w_mass, 1e-5)
+    _masked_pages_carry_no_mass(mass, case[4], shape[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 16])
+@pytest.mark.parametrize("lens", [[32768] * 8,
+                                  [1, 300, 4097, 32768, 17, 16384, 30000,
+                                   0]])
+def test_paged_attention_long_table(card, monkeypatch, lens, cluster):
+    """A table of 2,048 entries over 8 x 8 (sequence, KV head) clusters,
+    granite-8b's 4 query rows a KV head and pages of 16 tokens at 32,768
+    tokens a sequence: a CTA's shared memory does not grow with the table,
+    so every cluster size launches (the wrapper's choice, and forced 1 and
+    16); within 1e-5 of the plain version (run on the card), masked pages
+    0, the same bits on two runs."""
+    shape = (8, 32, 8, 128, 16, 2048)
+    if cluster is not None:
+        monkeypatch.setitem(_backend.clusters, pkernel.cluster_key(
+            *shape[:3], shape[4], shape[3], shape[5], torch.float32,
+            torch.cuda.current_device()), cluster)
+    q, k, v, tab, ln = (_t(a).to(card) for a in paged_case(
+        *shape, seed=len(set(lens)), lens=lens, pool=64))
+    run = lambda: _launches("paged_attention", lambda: (
+        pkernel.paged_attention(q, k, v, tab, ln, page_mass=True)))
+    out, mass = run()
+    w_out, w_mass = pref.paged_attention_ref(q, k, v, tab, ln, page_mass=True)
+    _close(out, w_out.cpu(), 1e-5)
+    _close(mass, w_mass.cpu(), 1e-5)
+    _masked_pages_carry_no_mass(mass.cpu(), lens, 16)
+    out2, mass2 = run()
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [[0, 17, 144], [1, 144, 70]])
+def test_paged_attention_lengths_differ(card, lens):
+    """B > 1 with a length each (0: every token masked, the mean of V)."""
+    case = paged_case(3, 16, 4, 128, 16, 9, seed=len(lens), lens=lens)
+    (out, mass), (w_out, w_mass) = _paged_on_card(card, case)
+    _close(out, w_out, 1e-5)
+    _close(mass, w_mass, 1e-5)
+    _masked_pages_carry_no_mass(mass, lens, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("shape,pos", [((1, 256, 64, 128, 16, 32), 511),
+                                       ((1, 256, 64, 128, 16, 32), 100),
+                                       ((2, 8, 4, 128, 16, 5), None)])
+def test_paged_attention_every_cluster_size(card, monkeypatch, shape, pos,
+                                            cluster):
+    """A (sequence, KV head) over a forced number of CTAs, CTAs past the
+    table's end included: within 1e-5, masked pages 0, and the same bits
+    on two runs."""
+    B, H, KV, dh, page, n_pp = shape
+    monkeypatch.setitem(_backend.clusters, pkernel.cluster_key(
+        B, H, KV, page, dh, n_pp, torch.float32,
+        torch.cuda.current_device()), cluster)
+    case = paged_case(*shape, seed=cluster,
+                      lens=None if pos is None else [pos + 1])
+    (out, mass), (w_out, w_mass) = _paged_on_card(card, case)
+    _close(out, w_out, 1e-5)
+    _close(mass, w_mass, 1e-5)
+    _masked_pages_carry_no_mass(mass, case[4], page)
+    (out2, mass2), _ = _paged_on_card(card, case)
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [15, 511])
+def test_paged_attention_serve_fold_bf16(card, pos):
+    """The serving fold in bf16: within 2e-2, masked pages 0, repeatable."""
+    case = paged_case(1, 256, 64, 128, 16, 32, seed=pos, lens=[pos + 1])
+    (out, mass), (w_out, w_mass) = _paged_on_card(card, case, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    _close(out.float(), w_out.float(), 2e-2)
+    _close(mass, w_mass, 2e-2)
+    _masked_pages_carry_no_mass(mass, [pos + 1], 16)
+    (out2, mass2), _ = _paged_on_card(card, case, torch.bfloat16)
     assert torch.equal(out, out2) and torch.equal(mass, mass2)
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import PAGED_SHAPES, paged_case
+from _torch_cases import PAGED_EDGE_SHAPES, PAGED_SHAPES, paged_case
 from _torch_cases import t as _t
 from repro.kernels.paged_attention.kernel import paged_attention_kernel
 from repro.kernels.paged_attention.ref import paged_attention_ref
@@ -45,6 +45,21 @@ def test_paged_attention_matches_jax(shape):
     # every sequence's probabilities sum to 1 per head
     np.testing.assert_allclose(mass.sum(1).numpy(), shape[1], rtol=1e-6)
     assert torch.equal(ops.paged_attention(*map(_t, case)), out)
+
+
+@pytest.mark.parametrize("shape,lens", [(s, None) for s in PAGED_EDGE_SHAPES]
+                         + [((3, 16, 4, 32, 16, 9), [0, 17, 144])])
+def test_paged_attention_edges_match_jax(shape, lens):
+    """The shapes the CUDA kernel's edge cases run at, and sequences of
+    different lengths (0: every token masked, the mean of V)."""
+    case = paged_case(*shape, seed=sum(shape), lens=lens)
+    want = np.asarray(paged_attention_ref(*map(jnp.asarray, case)))
+    out, mass = ops.paged_attention(*map(_t, case), page_mass=True)
+    np.testing.assert_allclose(out.numpy(), want, **F32)
+    np.testing.assert_allclose(mass.sum(1).numpy(), shape[1], rtol=1e-6)
+    for b, n in enumerate(case[4]):
+        if n > 0:
+            assert not mass[b, -(-int(n) // shape[4]):].any()
 
 
 def test_paged_attention_clamps_out_of_range_entries():
