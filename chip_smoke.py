@@ -17,7 +17,9 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      computing the same function: the interval-step kernels at 16 lanes,
      n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans (the top-k
      mask, the migrations and the accounting also at ``arms_sim``'s one
-     lane, lines of their own); the page
+     lane, lines of their own; the migrations also at TPP's plan widths,
+     12 promotions and 8,192 demotions, and the oracle's, 8,192 each,
+     lines of their own); the page
      migration and paged attention at the serving path's full-width
      shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
@@ -36,13 +38,24 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      with the device time of each pass of one forward and one backward by
      kernel name (``torch.profiler``), and at reduced mamba2-370m's, held
      to the plain version in f32;
-  3. main path, seven paths, each with every launch count set to 0 just
+  3. main path, fourteen paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
      ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
      k = 8,192, T = 4,096 with the streaming reduction; ``arms_sim`` on
      the 3-tier ``dram-cxl-pmem`` at T = 1,024, on a GUPS-like trace made
-     with numpy from ``--seed``; then ``launch.serve.serve`` decoding 512
+     with numpy from ``--seed``; then the other policy families at the
+     same width on the first T = 1,024 intervals of that trace and CRN
+     field: ``sweep_policy_configs`` over 16-lane knob grids of HeMem,
+     Memtis and TPP on ``pmem-large`` (binary route: ``tier_migrate`` and
+     ``interval_account``) and of Jenga and TierBPF (16 lanes) and
+     HybridTier (12) on ``dram-cxl-pmem`` (tier-targeted route:
+     ``interval_account``), each sweep's first 128 intervals also under
+     ``torch.profiler`` (busy share), and one ``simulate`` lane each of
+     ARMS, HeMem,
+     Memtis, TPP, all-slow and the oracle at their defaults on
+     ``pmem-large``, each exec time over all-slow's (the paper's Fig. 1
+     normalisation); then ``launch.serve.serve`` decoding 512
      greedy tokens at batch 8 of granite-8b at its full width and depth
      (36 layers, d_model 4,096, bf16, random weights from the seed) with
      layer 0's KV pages tiered by ARMS; then ``launch.train.train``
@@ -69,7 +82,10 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      prefill phase;
   4. whole-path checks: the scan-engine entry points on the card and on
      the CPU at n = 4,096, T = 256, 4 lanes, on both machines (counts
-     exact, exec_time within 1e-4 relative); the serving loop at reduced
+     exact, exec_time within 1e-4 relative), for ARMS and for each other
+     policy family (4 lanes of its grid, k = 1,536), and on the card
+     ``tier_shim=True`` bit for bit the hop-chain route for the six binary
+     families; the serving loop at reduced
      granite-8b (48 tokens, batch 2, pages of 8) on the card and on the
      CPU with the same weights and streams (plans, residency, slots and
      tokens exact; attention mass, fast-mass share and pools within 1e-5);
@@ -118,6 +134,9 @@ from repro_torch.kernels.mamba_scan import kernel as skernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ref as sref  # noqa: E402
 from repro_torch.kernels.score_update import (  # noqa: E402
     kernel as ukernel)
+from repro_torch.baselines import (hemem, hybridtier, jenga,  # noqa: E402
+                                   memtis, static, tierbpf, tpp)
+from repro_torch.baselines.arms_policy import ARMSSpec  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
@@ -328,6 +347,9 @@ def kernel_phase(dev, rng):
                   nbytes(*args) + nbytes(args[0]) + 2 * lanes * PLAN
                   + 8 * lanes * (R - 1), 4 * lanes * N)
 
+        if R == 2:
+            wide_plan_rows(entry, f, rng, spec, tier.shape[0], dev)
+
         # interval_account: one trace row shared by every lane, held to the
         # plain version bit for bit (f64 sums rounded once, the same f32
         # epilogue); at the sweep's 16 lanes and, on the 3-tier machine,
@@ -350,6 +372,34 @@ def kernel_phase(dev, rng):
     flash_rows(rows, rng)
     mamba_rows(rows, rng)
     return rows
+
+
+# (label, P, D, valid promotions, valid demotions): TPP's plans (12
+# promotions, demotions k wide) and the oracle's (both k wide), valid
+# entries a prefix as the policies emit them
+WIDE_PLANS = (("TPP", 12, K, 12, K // 4), ("oracle", K, K, K // 2, K // 2))
+
+
+def wide_plan_rows(entry, f, rng, spec, lanes, dev):
+    """``tier_migrate`` at the plan widths of TPP and the oracle (past the
+    1,024 entries staged in shared memory), on a row whose tier 0 holds
+    k - 1,024 pages, so that some promotions run."""
+    _, caps = machine_spec.lane_stack([spec] * lanes, N, K, dev)
+    R = spec.n_tiers
+    for label, P, D, vp, vd in WIDE_PLANS:
+        tier = np.full((lanes, N), R - 1, np.int32)
+        prom = np.full((lanes, P), -1, np.int32)
+        dem = np.full((lanes, D), -1, np.int32)
+        for b in range(lanes):
+            perm = rng.permutation(N)
+            tier[b, perm[:K - 1024]] = 0
+            dem[b, :vd] = perm[:vd]                      # from tier 0
+            prom[b, :vp] = perm[K:K + vp]                # from the bottom
+        args = (f(tier), f(prom), f(dem), caps)
+        entry("tier_migrate", f"B={lanes} n={N} R={R} P/D={P}/{D} "
+              f"({label})", kernel.tier_migrate, ref.tier_migrate_ref, args,
+              True, nbytes(*args) + nbytes(args[0]) + lanes * (P + D)
+              + 8 * lanes * (R - 1), 4 * lanes * N)
 
 
 # score_update at benchmarks/framework.py's size and at framework scale
@@ -842,7 +892,7 @@ def counted(label: str, run, path_kernels=SCAN_KERNELS):
 
 
 def main_path(seed: int):
-    """-> {path: {kernel: launches}} for the two paths of the main path."""
+    """-> {path: {kernel: launches}} for every path of the main path."""
     t0 = time.time()
     trace = gups_trace(T, N, seed)
     u = uniform_field(T, N, seed=seed + 1)
@@ -869,7 +919,13 @@ def main_path(seed: int):
           f"wall_s={wall2:.3f} intervals_per_s={T2 / wall2:.1f} "
           f"promotions={r.promotions} demotions={r.demotions} "
           f"wasteful={r.wasteful} launches={sim_counts}", flush=True)
-    profile_window(trace, u)
+    # the sweep's first 256 intervals, set-up included (profiling slows
+    # the host, so the busy share is a lower bound)
+    profiled("profile sweep_arms_configs T=256",
+             lambda: scan_engine.sweep_arms_configs(
+                 trace[:256], "pmem-large", K, GRID, sample_u=u[:256],
+                 reduce="stream"))
+    fams = policy_paths(trace[:T_POL], u[:T_POL])
 
     rep, wall3, serve_counts = counted("serve", lambda: serve.serve(
         "granite-8b", n_tokens=SERVE_TOKENS, batch=SB, full=True, seed=seed,
@@ -927,8 +983,102 @@ def main_path(seed: int):
     paths = ssm_paths(seed)
     ssm_consistency(seed)
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
-            "serve": serve_counts, "train": train_counts,
+            **fams, "serve": serve_counts, "train": train_counts,
             "train_ssm": ssm_counts, **paths}
+
+
+# the other policy families: knob grids of 16 lanes (12 for HybridTier) on
+# the binary route (2-tier pmem-large) and the tier-targeted route (3-tier
+# dram-cxl-pmem), at T_POL intervals of the main path's trace and CRN field
+T_POL = 1024   # cut from 2,048 to keep the whole script under 600 s
+T_PROF = 128   # intervals of each family's profile window
+BINARY_KERNELS = ("tier_migrate", "interval_account")
+TIER_KERNELS = ("interval_account",)
+grid = lambda a, av, b, bv: [{a: x, b: y} for x in av for y in bv]
+POLICY_SWEEPS = (
+    ("hemem", "pmem-large", hemem.HeMemSpec.make,
+     grid("hot_threshold", (4.0, 8.0, 16.0, 32.0),
+          "migration_period", (1, 2, 5, 10))),
+    ("memtis", "pmem-large", memtis.MemtisSpec.make,
+     grid("cooling_period_samples", (2.5e5, 5e5, 1e6, 2e6),
+          "adaptation_period", (2, 5, 10, 20))),
+    ("tpp", "pmem-large", tpp.TPPSpec.make,
+     grid("promote_hits", (1.0, 2.0, 4.0, 8.0),
+          "watermark", (0.90, 0.95, 0.98, 0.995))),
+    ("jenga", "dram-cxl-pmem", jenga.JengaSpec.make,
+     grid("alpha", (0.3, 0.5, 0.7, 0.9), "confirm", (1, 2, 3, 4))),
+    ("tierbpf", "dram-cxl-pmem", tierbpf.TierBPFSpec.make,
+     grid("admit_thresh", (1.0, 2.0, 4.0, 8.0),
+          "thrash_gain", (0.5, 1.0, 2.0, 4.0))),
+    ("hybridtier", "dram-cxl-pmem", hybridtier.HybridTierSpec.make,
+     grid("hot_thresh", (2.0, 4.0, 6.0, 9.0), "decay", (0.5, 0.7, 0.9))),
+)
+# the paper's comparison (Fig. 1): each family at its defaults, one lane
+FAMILY_DEFAULTS = (("arms", ARMSSpec.make), ("hemem", hemem.HeMemSpec.make),
+                   ("memtis", memtis.MemtisSpec.make),
+                   ("tpp", tpp.TPPSpec.make),
+                   ("all-slow", static.AllSlowSpec),
+                   ("oracle", static.OracleSpec))
+
+
+def policy_paths(trace, u) -> dict:
+    """The other policy families at the main path's width: a knob-grid
+    ``sweep_policy_configs`` of each, then the six binary families at
+    their defaults (``simulate``), each exec time over all-slow's.
+    -> {path: launch counts}."""
+    T_, n = trace.shape
+    counts = {}
+    for fam, mname, make, cfgs in POLICY_SWEEPS:
+        tn = make().tier_native
+        res, wall, counts[f"sweep_{fam}"] = counted(
+            f"sweep_{fam}", lambda: scan_engine.sweep_policy_configs(
+                make, trace, mname, K, cfgs, sample_u=u),
+            TIER_KERNELS if tn else BINARY_KERNELS)
+        s = summary(res)
+        require(all(np.isfinite(s["exec_time_s"])) and s["promotions"] > 0,
+                f"sweep {fam}: non-finite exec_time or no promotions")
+        profiled(f"profile sweep_policy_configs {fam} T={T_PROF}",
+                 lambda: scan_engine.sweep_policy_configs(
+                     make, trace[:T_PROF], mname, K, cfgs,
+                     sample_u=u[:T_PROF]), top=4)
+        print(f"main path sweep_policy_configs {fam} {mname}: "
+              f"lanes={len(cfgs)} T={T_} n={n} k={K} wall_s={wall:.3f} "
+              f"lane_intervals_per_s={len(cfgs) * T_ / wall:.1f} "
+              f"promotions={s['promotions']} demotions={s['demotions']} "
+              f"wasteful={s['wasteful']} launches={counts[f'sweep_{fam}']}",
+              flush=True)
+
+    walls = {}
+
+    def compare():
+        out = {}
+        for fam, make in FAMILY_DEFAULTS:
+            t0 = time.time()
+            out[fam] = scan_engine.simulate(make(), trace, "pmem-large", K,
+                                            sample_u=u)
+            walls[fam] = time.time() - t0
+        return out
+
+    res, wall, counts["families"] = counted(
+        "families", compare, ("ewma_update", "topk_mask") + BINARY_KERNELS)
+    base = res["all-slow"]
+    require(base.promotions == base.demotions == 0,
+            "all-slow migrated a page")
+    for fam, r in res.items():
+        require(np.isfinite(r.exec_time_s), f"{fam}: exec_time not finite")
+        require(fam == "all-slow" or r.promotions > 0,
+                f"{fam}: no promotion")
+        print(f"main path families pmem-large {fam}: T={T_} n={n} k={K} "
+              f"exec_time_s={r.exec_time_s:.6f} vs_all_slow="
+              f"{r.exec_time_s / base.exec_time_s:.4f} "
+              f"promotions={r.promotions} demotions={r.demotions} "
+              f"wasteful={r.wasteful} hot_recall={r.hot_recall:.4f} "
+              f"wall_s={walls[fam]:.3f} "
+              f"intervals_per_s={T_ / walls[fam]:.1f}",
+              flush=True)
+    print(f"main path families: wall_s={wall:.3f} launches="
+          f"{counts['families']}", flush=True)
+    return counts
 
 
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 6, 2, 4096
@@ -1179,20 +1329,18 @@ def serve_breakdown(seed: int, T_: int = 64, T_prof: int = 32):
     device_rows(prof, f"profile serve {T_prof} tokens", wall, T_prof)
 
 
-def profile_window(trace, u, T_: int = 256):
-    """Device busy share of the first ``T_`` intervals of the sweep (set-up
-    included), from a ``torch.profiler`` trace (profiling slows the host,
-    so the share is a lower bound), and the device time by kernel name."""
+def profiled(label: str, run, top: int = 12):
+    """``run()`` under ``torch.profiler``: its busy share and device time
+    by kernel name (``device_rows``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        scan_engine.sweep_arms_configs(trace[:T_], "pmem-large", K, GRID,
-                                       sample_u=u[:T_], reduce="stream")
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    device_rows(prof, f"profile sweep_arms_configs T={T_}", wall)
+    device_rows(prof, label, wall, top=top)
 
 
 # the port's own kernels, by the names their sources give them
@@ -1201,9 +1349,10 @@ PORT_KERNEL = re.compile(r"(void )?(ewma_update|interval_account|tier_migrate"
                          r"[a-z_0-9]*[<(]")
 
 
-def device_rows(prof, label: str, wall: float, steps: int = 0):
+def device_rows(prof, label: str, wall: float, steps: int = 0,
+                top: int = 12):
     """Print the busy share of ``wall`` and the device time by name, the
-    twelve largest and every kernel of the port's (and, given ``steps``,
+    ``top`` largest and every kernel of the port's (and, given ``steps``,
     the device time and the device kernels and copies a step)."""
     # device-side rows only (kernels, copies): an operator row also carries
     # the device time of the kernels it launched, which would count twice;
@@ -1220,7 +1369,7 @@ def device_rows(prof, label: str, wall: float, steps: int = 0):
           f"busy_share={busy / wall:.4f}{per_step}", flush=True)
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
-        if i < 12 or PORT_KERNEL.match(e.key):
+        if i < top or PORT_KERNEL.match(e.key):
             print(f"  device {e.self_device_time_total / 1e3:9.2f} ms "
                   f"x{e.count:6d}  {e.key[:70]}", flush=True)
 
@@ -1241,26 +1390,70 @@ def whole_path_check(seed: int):
                 scan_engine.arms_sim(trace, mname, k, sample_u=u,
                                      device=dev)]
         for a, b in zip(runs["cuda"], runs["cpu"]):
-            require((a.promotions, a.demotions, a.wasteful)
-                    == (b.promotions, b.demotions, b.wasteful),
-                    f"{mname} {a.name}: card counts {a.promotions}/"
-                    f"{a.demotions}/{a.wasteful} != cpu {b.promotions}/"
-                    f"{b.demotions}/{b.wasteful}")
-            require(np.array_equal(a.timeline_promotions,
-                                   b.timeline_promotions)
-                    and np.array_equal(a.timeline_mode, b.timeline_mode),
-                    f"{mname} {a.name}: timelines differ")
-            rel = abs(a.exec_time_s - b.exec_time_s) / abs(b.exec_time_s)
-            require(rel <= 1e-4, f"{mname} {a.name}: exec_time rel {rel}")
-            require(abs(a.hot_recall - b.hot_recall) <= 1e-6
-                    and abs(a.fast_hit_frac - b.fast_hit_frac) <= 1e-6,
-                    f"{mname} {a.name}: recall / hit fraction differ")
+            same_runs(a, b, f"{mname} {a.name}")
         promos = [r.promotions for r in runs["cuda"]]
         require(len(set(promos)) > 1,
                 f"{mname}: every lane took the same path ({promos})")
         print(f"whole-path check {mname}: card == cpu over "
               f"{len(runs['cuda'])} runs, promotions={promos} wasteful="
               f"{[r.wasteful for r in runs['cuda']]}", flush=True)
+
+
+def same_runs(a, b, what: str):
+    """Card run ``a`` against CPU run ``b`` (or two card routes): counts
+    and integer timelines exact, exec_time within 1e-4 relative, recall
+    and hit fraction within 1e-6."""
+    require((a.promotions, a.demotions, a.wasteful)
+            == (b.promotions, b.demotions, b.wasteful),
+            f"{what}: counts {a.promotions}/{a.demotions}/{a.wasteful} != "
+            f"{b.promotions}/{b.demotions}/{b.wasteful}")
+    require(np.array_equal(a.timeline_promotions, b.timeline_promotions)
+            and np.array_equal(a.timeline_mode, b.timeline_mode),
+            f"{what}: timelines differ")
+    rel = abs(a.exec_time_s - b.exec_time_s) / abs(b.exec_time_s)
+    require(rel <= 1e-4, f"{what}: exec_time rel {rel}")
+    require(abs(a.hot_recall - b.hot_recall) <= 1e-6
+            and abs(a.fast_hit_frac - b.fast_hit_frac) <= 1e-6,
+            f"{what}: recall / hit fraction differ")
+
+
+def policy_check(seed: int):
+    """Every other policy family on the card against the CPU at n = 4,096,
+    T = 256, 4 lanes of its main-path grid, on both machines; then, on the
+    card, ``tier_shim=True`` bit for bit the hop-chain route for the six
+    binary families.  k = 1,536: TPP's demotions and both of the oracle's
+    plans are k wide, past the 1,024 entries ``tier_migrate`` stages in
+    shared memory, so they take its streamed route as at full width."""
+    n, T_, k = 4096, 256, 1536
+    trace = gups_trace(T_, n, seed + 2, hot_frac=0.25, shift_every=64)
+    u = uniform_field(T_, n, seed=seed + 3)
+    for mname in ("pmem-large", "dram-cxl-pmem"):
+        moved = []
+        for fam, _, make, cfgs in POLICY_SWEEPS + (
+                ("all-slow", None, static.AllSlowSpec, [{}]),
+                ("oracle", None, static.OracleSpec, [{}])):
+            lanes = cfgs[::max(1, len(cfgs) // 4)][:4]
+            runs = [scan_engine.sweep_policy_configs(
+                make, trace, mname, k, lanes, sample_u=u, device=dev)
+                for dev in ("cuda", "cpu")]
+            for a, b in zip(*runs):
+                same_runs(a, b, f"{mname} {a.name}")
+            moved.append(f"{fam}={[r.promotions for r in runs[0]]}")
+        print(f"policy check {mname}: card == cpu, promotions "
+              f"{' '.join(moved)}", flush=True)
+        shims = []
+        for fam, make in FAMILY_DEFAULTS:
+            hop, shim = (scan_engine.simulate(make(), trace, mname, k,
+                                              sample_u=u, tier_shim=ts)
+                         for ts in (False, True))
+            same_runs(shim, hop, f"{mname} {fam} tier_shim")
+            require(shim.exec_time_s == hop.exec_time_s
+                    and np.array_equal(shim.timeline_slow_bw,
+                                       hop.timeline_slow_bw),
+                    f"{mname} {fam}: tier_shim not bit for bit")
+            shims.append(f"{fam}={hop.promotions}")
+        print(f"shim check {mname}: tier_shim == hop chain bit for bit on "
+              f"the card, promotions {' '.join(shims)}", flush=True)
 
 
 def serve_check(seed: int, T_: int = 48, batch: int = 2):
@@ -1459,14 +1652,17 @@ def main():
     print(f"build: {time.time() - t0:.2f}s", flush=True)
 
     rows = kernel_phase(dev, np.random.default_rng(args.seed))
+    print(f"kernel phase: done at {time.time() - t0:.1f}s", flush=True)
     by_path = main_path(args.seed)
+    print(f"main path: done at {time.time() - t0:.1f}s", flush=True)
     for nm, row in rows.items():   # launches: every path of the main path
         row["launches"] = sum(c[nm] for c in by_path.values())
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
-    whole_path_check(args.seed)
-    serve_check(args.seed)
-    train_check(args.seed)
-    ssm_decode_check(args.seed)
+    for check in (whole_path_check, policy_check, serve_check, train_check,
+                  ssm_decode_check):
+        t1 = time.time()
+        check(args.seed)
+        print(f"{check.__name__}: {time.time() - t1:.1f}s", flush=True)
 
     print(f"wall: {time.time() - t0:.1f}s from the build's start", flush=True)
     print(json.dumps({"kernels": list(rows.values())}))

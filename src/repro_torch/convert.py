@@ -3,7 +3,8 @@
 Each function takes the JAX package's object with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, obj)``) and returns the
 port's tensor dataclass (or, for ``model_params``, its parameter dict):
-the simulator's policy state and machines, the model weights, the
+the simulator's policy specs, policy state and machines (ARMS and the
+eight baseline families), the model weights, the
 serving layer's ``TieredPool`` and ``PagedKV``, and the optimizer's
 ``AdamWState``.  Fields are read by name, so nothing of the JAX package
 is imported here.  A per-lane object (the JAX package's layout outside
@@ -68,6 +69,44 @@ def arms_run_state(obj, device=None) -> ARMSRunState:
     inner = tiering_state(obj.inner, device)
     lanes = np.ndim(obj.inner.ewma_s) == 2
     return _fields(ARMSRunState, obj, lanes, device, inner=inner)
+
+
+def _families() -> dict:
+    """family name -> (the port's spec class, its state class)."""
+    from repro_torch.baselines import (hemem, hybridtier, jenga, memtis,
+                                       static, tierbpf, tpp)
+    return {
+        "all-slow": (static.AllSlowSpec, static.StaticState),
+        "oracle": (static.OracleSpec, static.OracleState),
+        "hemem": (hemem.HeMemSpec, hemem.HeMemState),
+        "memtis": (memtis.MemtisSpec, memtis.MemtisState),
+        "tpp": (tpp.TPPSpec, tpp.TPPState),
+        "hybridtier": (hybridtier.HybridTierSpec, hybridtier.HybridTierState),
+        "jenga": (jenga.JengaSpec, jenga.JengaState),
+        "tierbpf": (tierbpf.TierBPFSpec, tierbpf.TierBPFState),
+    }
+
+
+def policy_spec(spec, device=None):
+    """A JAX baseline spec (any family but ARMS, picked by ``spec.name``)
+    as the port's: knob leaves as they are (0-d for one spec, [B] for a
+    lane stack), meta fields (``migration_limit``, ``bs_max``) copied."""
+    device = resolve_device(device)
+    cls = _families()[spec.name][0]
+    meta = cls._meta_fields
+    return cls(**{f.name: getattr(spec, f.name) if f.name in meta
+                  else torch.from_numpy(np.array(getattr(spec, f.name)))
+                  .to(device)
+                  for f in dataclasses.fields(cls)})
+
+
+def policy_state(obj, family: str, device=None):
+    """A JAX baseline family's policy state as the port's: a per-lane
+    state (scalar ``t``) gains a lane axis of 1, a lane-batched one keeps
+    its lanes."""
+    device = resolve_device(device)
+    cls = _families()[family][1]
+    return _fields(cls, obj, np.ndim(obj.t) == 1, device)
 
 
 def machine(obj, device=None) -> TieredMachineSpec:

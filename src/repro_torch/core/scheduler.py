@@ -20,6 +20,18 @@ def batch_size(bw_app, bw_max, bs_max: int):
     return torch.clamp(bs, 1, bs_max)
 
 
+def pair_budgets(tier_util, bs_max: int):
+    """Per-adjacent-pair migration budgets over an N-tier chain.
+
+    ``tier_util`` f32 [B, R]: per-tier bandwidth utilization (raw ratios
+    welcome, clipped here).  A pair's budget runs the BS formula against
+    its more-saturated endpoint.  Returns i32 [B, R-1] in [1, bs_max]."""
+    u = torch.maximum(tier_util[:, :-1], tier_util[:, 1:])
+    frac = torch.clamp(1.0 - u, 0.0, 1.0)
+    return torch.clamp(torch.floor(frac * bs_max).to(torch.int32), 1,
+                       bs_max)
+
+
 def build_plan(cand_idx, promote_ok, demote_idx, bw_app, cfg: ARMSConfig
                ) -> MigrationPlan:
     """Truncate the gated, priority-ordered candidate batch to BS entries

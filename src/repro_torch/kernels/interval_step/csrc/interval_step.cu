@@ -326,14 +326,16 @@ extern "C" int arms_interval_account(
 }
 
 // -------------------------------------------------------------- migrations
-// Replaces kernel.py:tier_migrate_kernel (_migrate_body).  Bound: bytes —
-// the tier row read once and written once per lane; the plans (P, D <= a
-// few dozen entries on every path) are negligible.  At the sweep's
-// 16 x 65,536 that is 2.5 us at the HBM rate, so in practice the floor is a
-// cluster launch, one load latency and the plan's few hundred instructions.
+// Replaces kernel.py:tier_migrate_kernel (_migrate_body), which takes plans
+// of any width.  Bound: bytes — the tier row read once and written once per
+// lane, the plans read once and the executed masks written once.  At the
+// sweep's 16 x 65,536 with ARMS's 64-entry plans that is 2.5 us at the HBM
+// rate, so in practice the floor is a cluster launch, one load latency and
+// the plan's few hundred instructions.
 // Design: each lane on a thread-block cluster of C CTAs, C chosen as for the
 // accounting kernel (best_cluster, slices of at least MIGRATE_MIN_SLICE
-// pages), each CTA a contiguous slice of the row:
+// pages), each CTA a contiguous slice of the row.  Plans of at most
+// MIGRATE_STAGE entries each take the staged route (tier_migrate_kernel):
 //   * Each CTA first stages the plans in shared memory and gathers every
 //     entry's tier from the input row (read only, so no hazard), so those
 //     loads are in flight with the slice's.
@@ -353,18 +355,39 @@ extern "C" int arms_interval_account(
 //     the input row (no read-back of the output); it executes when its
 //     exclusive rank among the valid requests is below tier 0's room.  Warp 0
 //     ranks 32 entries at a time with a ballot and __popc, carrying the count
-//     from one group of 32 to the next, up to MIGRATE_MAX_PLAN entries.  The
-//     ranks equal the Pallas body's sequential walk (kernel.py:134-135:
-//     entry order within a tier matches the cumsum rank).
+//     from one group of 32 to the next.  The ranks equal the Pallas body's
+//     sequential walk (kernel.py:134-135: entry order within a tier matches
+//     the cumsum rank).
 //   * Each CTA writes the plan's pages that lie in its own slice, so every
 //     page of the output has one writer, the CTA that copied it: demotions,
 //     a block barrier, then promotions (a page in both plans ends in tier 0,
 //     as apply_down then apply_up).  Rank 0 writes the executed masks and the
 //     crossing counts.
+// A wider plan (TPP's demotions and both of the oracle's are k wide) takes
+// the streamed route (tier_migrate_wide_kernel), whose shared memory does
+// not grow with the plan:
+//   * The slice is copied and counted as above; each CTA also counts the
+//     departures of its 1/C share of the demote plan, and both counts go
+//     through DSMEM in the same cluster barrier.
+//   * Every CTA streams the demote plan in tiles of MIGRATE_TILE entries in
+//     plan order, MIGRATE_PER a thread: the same candidates and slacks, but
+//     an entry's rank is a block-wide exclusive scan plus a per-tier carry
+//     from the earlier tiles (a landing at tier r depends only on the entry
+//     itself and on the candidates before it, so the tiles may go in
+//     order).  Each CTA writes the landing tiers in its own slice.
+//   * A cluster barrier (release / acquire) makes every slice's demotions
+//     visible, so a promotion's source is read back from the output row; the
+//     promote plan is streamed the same way against tier 0's room, and rank 0
+//     writes the executed flags.  After a second cluster barrier each CTA
+//     reads those flags back and writes the promotions in its own slice (no
+//     CTA writes a promotion while another may still read its source).
 #define MIGRATE_THREADS 256
 #define MIGRATE_ILP 4             // 16-byte words of a thread in flight
 #define MIGRATE_MIN_SLICE 1024    // fewest pages a CTA of a cluster takes
-#define MIGRATE_MAX_PLAN 1024     // widest plan a lane takes
+#define MIGRATE_STAGE 1024        // widest plan the staged route takes
+#define MIGRATE_PER 8             // plan entries of a thread in a tile
+#define MIGRATE_TILE (MIGRATE_PER * MIGRATE_THREADS)
+#define MIGRATE_WARPS (MIGRATE_THREADS / 32)
 
 // One page into a thread's counts of tiers 0..R-2 (the last is not needed).
 __device__ __forceinline__ void count_tier(int (&occ)[MAX_TIERS - 1], int t,
@@ -377,6 +400,45 @@ __device__ __forceinline__ void count_tier(int (&occ)[MAX_TIERS - 1], int t,
 // Ballot count of `pred` over the warp.
 __device__ __forceinline__ int warp_count(bool pred) {
   return __popc(__ballot_sync(0xffffffffu, pred));
+}
+
+// Copies a CTA's slice of `len` pages from `src` to `dst`, in 16-byte words
+// where both are on a 16-byte boundary (a scalar tail), MIGRATE_ILP words of
+// a thread in flight; `occ` gets this thread's counts of its pages in tiers
+// 0..R-2.
+__device__ __forceinline__ void copy_count_slice(const int* src, int* dst,
+                                                 int len, int R, int tid,
+                                                 int (&occ)[MAX_TIERS - 1]) {
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r) occ[r] = 0;
+  int done = 0;
+  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+    const int nv = len / 4;
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int v0 = tid; v0 < nv; v0 += MIGRATE_ILP * MIGRATE_THREADS) {
+      int4 t[MIGRATE_ILP];
+#pragma unroll
+      for (int u = 0; u < MIGRATE_ILP; ++u)
+        if (v0 + u * MIGRATE_THREADS < nv) t[u] = s4[v0 + u * MIGRATE_THREADS];
+#pragma unroll
+      for (int u = 0; u < MIGRATE_ILP; ++u) {
+        if (v0 + u * MIGRATE_THREADS < nv) {
+          d4[v0 + u * MIGRATE_THREADS] = t[u];
+          count_tier(occ, t[u].x, R);
+          count_tier(occ, t[u].y, R);
+          count_tier(occ, t[u].z, R);
+          count_tier(occ, t[u].w, R);
+        }
+      }
+    }
+    done = nv * 4;
+  }
+  for (int i = done + tid; i < len; i += MIGRATE_THREADS) {
+    const int t = src[i];
+    dst[i] = t;
+    count_tier(occ, t, R);
+  }
 }
 
 __global__ void __launch_bounds__(MIGRATE_THREADS)
@@ -428,38 +490,7 @@ __global__ void __launch_bounds__(MIGRATE_THREADS)
 
   // the slice: copied, and counted by tier
   int occ[MAX_TIERS - 1];
-#pragma unroll
-  for (int r = 0; r < MAX_TIERS - 1; ++r) occ[r] = 0;
-  const int* src = row + start;
-  int* dst = orow + start;
-  int done = 0;
-  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
-    const int nv = len / 4;
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (int v0 = tid; v0 < nv; v0 += MIGRATE_ILP * MIGRATE_THREADS) {
-      int4 t[MIGRATE_ILP];
-#pragma unroll
-      for (int u = 0; u < MIGRATE_ILP; ++u)
-        if (v0 + u * MIGRATE_THREADS < nv) t[u] = s4[v0 + u * MIGRATE_THREADS];
-#pragma unroll
-      for (int u = 0; u < MIGRATE_ILP; ++u) {
-        if (v0 + u * MIGRATE_THREADS < nv) {
-          d4[v0 + u * MIGRATE_THREADS] = t[u];
-          count_tier(occ, t[u].x, R);
-          count_tier(occ, t[u].y, R);
-          count_tier(occ, t[u].z, R);
-          count_tier(occ, t[u].w, R);
-        }
-      }
-    }
-    done = nv * 4;
-  }
-  for (int i = done + tid; i < len; i += MIGRATE_THREADS) {
-    const int t = src[i];
-    dst[i] = t;
-    count_tier(occ, t, R);
-  }
+  copy_count_slice(row + start, orow + start, len, R, tid, occ);
 #pragma unroll
   for (int r = 0; r < MAX_TIERS - 1; ++r)
     if (r < R - 1) occ[r] = warp_sum(occ[r]);
@@ -583,23 +614,250 @@ __global__ void __launch_bounds__(MIGRATE_THREADS)
   }
 }
 
+// Exclusive prefix of `v` over the CTA's threads in thread order, and in
+// `total` the CTA's sum; every thread of the CTA calls it (it holds two block
+// barriers).  `s_scan` holds MIGRATE_WARPS ints.
+__device__ __forceinline__ int block_exclusive(int v, int* s_scan,
+                                               int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  __syncthreads();   // the previous call's readers are done with s_scan
+  if (lane == 31) s_scan[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < MIGRATE_WARPS; ++w) {
+    const int t = s_scan[w];
+    before += w < warp ? t : 0;
+    total += t;
+  }
+  return before + x - v;
+}
+
+// Sums each thread's counts of the R-1 adjacent pairs over the CTA; thread
+// j < R-1 returns pair j's sum (the others 0).
+__device__ __forceinline__ int block_pair_sum(int (&c)[MAX_TIERS - 1], int R,
+                                              int (*s_red)[MAX_TIERS - 1]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < MAX_TIERS - 1; ++j)
+    if (j < R - 1) c[j] = warp_sum(c[j]);
+  __syncthreads();
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < MAX_TIERS - 1; ++j)
+      if (j < R - 1) s_red[warp][j] = c[j];
+  }
+  __syncthreads();
+  int v = 0;
+  if (tid < R - 1)
+    for (int w = 0; w < MIGRATE_WARPS; ++w) v += s_red[w][tid];
+  return v;
+}
+
+__global__ void __launch_bounds__(MIGRATE_THREADS)
+    tier_migrate_wide_kernel(const int* __restrict__ tier,
+                             const int* __restrict__ promote,
+                             const int* __restrict__ demote,
+                             const int* __restrict__ caps,
+                             int* __restrict__ tier_out,
+                             uint8_t* __restrict__ pexec,
+                             uint8_t* __restrict__ dexec,
+                             int* __restrict__ mig_up,
+                             int* __restrict__ mig_down, int n, int R, int P,
+                             int D, int slice) {
+  __shared__ int s_red[MIGRATE_WARPS][MAX_TIERS - 1];
+  __shared__ int s_dep[MIGRATE_WARPS][MAX_TIERS - 1];
+  // rank q's counts, pushed by q: tiers 0..R-2, then departures from them
+  __shared__ int s_cnt[16][2 * (MAX_TIERS - 1)];
+  __shared__ int s_scan[MIGRATE_WARPS];
+  __shared__ int s_room[MAX_TIERS - 1];   // tier 0's room, middle slacks
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  cluster_arrive_relaxed();   // once it completes, every CTA has started
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const int* row = tier + (int64_t)b * n;
+  int* orow = tier_out + (int64_t)b * n;
+  const int* cap = caps + b * R;
+  const int* dem = demote + (int64_t)b * D;
+  const int* prom = promote + (int64_t)b * P;
+  const int64_t start = (int64_t)rank * slice;
+  const int64_t left = (int64_t)n - start;
+  const int len = left <= 0 ? 0 : (left < slice ? (int)left : slice);
+
+  // the slice, copied and counted; this CTA's share of the departures
+  int occ[MAX_TIERS - 1], dep[MAX_TIERS - 1];
+  copy_count_slice(row + start, orow + start, len, R, tid, occ);
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r) dep[r] = 0;
+  const int share = (D + csize - 1) / csize;
+  const int lo = min(D, rank * share), hi = min(D, lo + share);
+  for (int i = lo + tid; i < hi; i += MIGRATE_THREADS) {
+    const int d = dem[i];
+    if (d >= 0) count_tier(dep, row[d], R);
+  }
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r) {
+    if (r < R - 1) {
+      occ[r] = warp_sum(occ[r]);
+      dep[r] = warp_sum(dep[r]);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < MAX_TIERS - 1; ++r) {
+      if (r < R - 1) {
+        s_red[warp][r] = occ[r];
+        s_dep[warp][r] = dep[r];
+      }
+    }
+  }
+  __syncthreads();
+  cluster_wait();   // every CTA has started: its shared memory may be written
+  if (tid < 2 * (R - 1)) {
+    const bool is_occ = tid < R - 1;
+    const int r = is_occ ? tid : tid - (R - 1);
+    int v = 0;
+    for (int w = 0; w < MIGRATE_WARPS; ++w)
+      v += is_occ ? s_red[w][r] : s_dep[w][r];
+    const int at = is_occ ? r : MAX_TIERS - 1 + r;
+    for (int q = 0; q < csize; ++q)
+      cluster.map_shared_rank(&s_cnt[rank][at], q)[0] = v;
+  }
+  cluster_arrive_release();
+  cluster_wait();   // every rank's counts are here; nothing remote after this
+  if (tid < R - 1) {   // room after the departures: tier 0's, the middles'
+    int o = 0, d = 0;
+    for (int q = 0; q < csize; ++q) {
+      o += s_cnt[q][tid];
+      d += s_cnt[q][MAX_TIERS - 1 + tid];
+    }
+    s_room[tid] = cap[tid] - (o - d);
+  }
+  __syncthreads();
+
+  // demotions, streamed in plan order: landing tiers and crossings
+  int carry[MAX_TIERS - 1], down[MAX_TIERS - 1];
+#pragma unroll
+  for (int r = 0; r < MAX_TIERS - 1; ++r) carry[r] = down[r] = 0;
+  for (int base = 0; base < D; base += MIGRATE_TILE) {
+    const int i0 = base + tid * MIGRATE_PER;
+    int pg[MIGRATE_PER], sr[MIGRATE_PER], dest[MIGRATE_PER];
+#pragma unroll
+    for (int u = 0; u < MIGRATE_PER; ++u) {
+      pg[u] = i0 + u < D ? dem[i0 + u] : -1;
+      sr[u] = pg[u] >= 0 ? row[pg[u]] : R - 1;
+      dest[u] = pg[u] >= 0 && sr[u] < R - 1 ? 0 : -1;   // 0: not landed
+    }
+#pragma unroll
+    for (int r = 1; r < MAX_TIERS - 1; ++r) {   // middle tiers, lowest first
+      if (r < R - 1) {
+        int c = 0;
+#pragma unroll
+        for (int u = 0; u < MIGRATE_PER; ++u) c += dest[u] == 0 && sr[u] < r;
+        int total;
+        int at = carry[r] + block_exclusive(c, s_scan, total);
+        const int slack = s_room[r];
+#pragma unroll
+        for (int u = 0; u < MIGRATE_PER; ++u) {
+          if (dest[u] == 0 && sr[u] < r) {
+            if (at < slack) dest[u] = r;
+            ++at;
+          }
+        }
+        carry[r] += total;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MIGRATE_PER; ++u) {
+      if (dest[u] == 0) dest[u] = R - 1;   // no middle tier had room
+#pragma unroll
+      for (int j = 0; j < MAX_TIERS - 1; ++j)
+        down[j] += (j < R - 1 && dest[u] > 0 && sr[u] <= j && dest[u] > j);
+      if (rank == 0 && i0 + u < D)
+        dexec[(int64_t)b * D + i0 + u] = dest[u] > 0 ? 1 : 0;
+      if (dest[u] > 0 && pg[u] >= start && pg[u] < start + len)
+        orow[pg[u]] = dest[u];
+    }
+  }
+  const int dsum = block_pair_sum(down, R, s_red);
+  if (rank == 0 && tid < R - 1) mig_down[b * (R - 1) + tid] = dsum;
+  cluster_arrive_release();
+  cluster_wait();   // every slice's demotions are in the output row
+
+  // promotions, streamed: sources read back, ranks against tier 0's room
+  const int room = s_room[0];
+  int pcarry = 0, up[MAX_TIERS - 1];
+#pragma unroll
+  for (int j = 0; j < MAX_TIERS - 1; ++j) up[j] = 0;
+  for (int base = 0; base < P; base += MIGRATE_TILE) {
+    const int j0 = base + tid * MIGRATE_PER;
+    int sr[MIGRATE_PER];
+    bool ok[MIGRATE_PER];
+    int c = 0;
+#pragma unroll
+    for (int u = 0; u < MIGRATE_PER; ++u) {
+      const int p = j0 + u < P ? prom[j0 + u] : -1;
+      sr[u] = p >= 0 ? orow[p] : 0;
+      ok[u] = p >= 0 && sr[u] > 0;
+      c += ok[u];
+    }
+    int total;
+    int at = pcarry + block_exclusive(c, s_scan, total);
+#pragma unroll
+    for (int u = 0; u < MIGRATE_PER; ++u) {
+      const bool ex = ok[u] && at < room;
+      at += ok[u];
+#pragma unroll
+      for (int x = 0; x < MAX_TIERS - 1; ++x)
+        up[x] += (x < R - 1 && ex && sr[u] > x);
+      if (rank == 0 && j0 + u < P) pexec[(int64_t)b * P + j0 + u] = ex;
+    }
+    pcarry += total;
+  }
+  const int usum = block_pair_sum(up, R, s_red);
+  if (rank == 0 && tid < R - 1) mig_up[b * (R - 1) + tid] = usum;
+  cluster_arrive_release();
+  cluster_wait();   // rank 0's flags are out; every source has been read
+
+  for (int j = tid; j < P; j += MIGRATE_THREADS) {
+    const int p = prom[j];
+    if (p >= start && p < start + len && pexec[(int64_t)b * P + j])
+      orow[p] = 0;
+  }
+}
+
+// The staged route for plans of at most MIGRATE_STAGE entries (mode 0), the
+// streamed one for wider plans (mode 1).
 static cudaError_t migrate_launch(int B, int n, int cluster, int P, int D,
                                   cudaStream_t stream, ClusterLaunch* L) {
-  if (cluster < 1 || cluster > 16 || P < 0 || D < 0 ||
-      P > MIGRATE_MAX_PLAN || D > MIGRATE_MAX_PLAN)
+  if (cluster < 1 || cluster > 16 || P < 0 || D < 0)
     return cudaErrorInvalidValue;
   // slices start on a 16-byte boundary of a lane's rows
   L->slice = ((n + cluster - 1) / cluster + 3) / 4 * 4;
+  L->mode = P > MIGRATE_STAGE || D > MIGRATE_STAGE;
+  if (L->mode)
+    return cluster_config(tier_migrate_wide_kernel, B, cluster,
+                          MIGRATE_THREADS, 0, stream, L);
   return cluster_config(tier_migrate_kernel, B, cluster, MIGRATE_THREADS,
                         sizeof(int) * 3 * ((size_t)P + (size_t)D), stream, L);
 }
 
 extern "C" int arms_migrate_cluster(int B, int n, int* cluster) {
-  // sized for the widest plans, so the choice holds for any plan width
+  // sized for the staged route's widest plans, so the choice holds for any
+  // plan that route takes
   return best_cluster(
       [=](int c, ClusterLaunch* L) {
-        return migrate_launch(B, n, c, MIGRATE_MAX_PLAN, MIGRATE_MAX_PLAN, 0,
-                              L);
+        return migrate_launch(B, n, c, MIGRATE_STAGE, MIGRATE_STAGE, 0, L);
       },
       B, max_cluster_for_slice(n, MIGRATE_MIN_SLICE), cluster);
 }
@@ -615,9 +873,10 @@ extern "C" int arms_tier_migrate(const int* tier, const int* promote,
   ClusterLaunch L;
   cudaError_t err = migrate_launch(B, n, cluster, P, D, stream, &L);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&L.cfg, tier_migrate_kernel, tier, promote, demote,
-                           caps, tier_out, pexec, dexec, mig_up, mig_down, n,
-                           R, P, D, L.slice);
+  err = cudaLaunchKernelEx(
+      &L.cfg, L.mode ? tier_migrate_wide_kernel : tier_migrate_kernel, tier,
+      promote, demote, caps, tier_out, pexec, dexec, mig_up, mig_down, n, R, P,
+      D, L.slice);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

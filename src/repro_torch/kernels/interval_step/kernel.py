@@ -20,7 +20,6 @@ from repro_torch.kernels import _backend
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "interval_step.cu"
 MAX_TIERS = 8
-MAX_PLAN = 1024   # per-lane plan width the migration kernel takes
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -129,16 +128,15 @@ def interval_account(lat, br, bw, mlp, true, tier, mig_up, mig_down, oracle,
 
 def tier_migrate(tier, promote, demote, caps):
     """Hop-chain migrations on the card: tier i32 [B, n], promote i32
-    [B, P], demote i32 [B, D] (padded-index plans, valid entries unique),
-    caps i32 [B, R].  Returns (tier, pexec, dexec, mig_up, mig_down); the
-    input row is not changed."""
+    [B, P], demote i32 [B, D] (padded-index plans of any width, valid
+    entries unique), caps i32 [B, R].  Returns (tier, pexec, dexec, mig_up,
+    mig_down); the input row is not changed.  Plans of at most 1,024
+    entries are staged in shared memory, wider ones streamed (csrc)."""
     B, n = tier.shape
     P, D, R = promote.shape[1], demote.shape[1], caps.shape[-1]
     dev = tier.device
     if not 2 <= R <= MAX_TIERS:
         raise ValueError(f"tier_migrate: {R} tiers, supports 2..{MAX_TIERS}")
-    if P > MAX_PLAN or D > MAX_PLAN:
-        raise ValueError(f"tier_migrate: plan widths {P}/{D} > {MAX_PLAN}")
     _check("tier", tier, torch.int32, (B, n), dev)
     _check("promote", promote, torch.int32, (B, P), dev)
     _check("demote", demote, torch.int32, (B, D), dev)

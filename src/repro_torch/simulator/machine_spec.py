@@ -22,7 +22,8 @@ run's ``k`` and the bottom tier to ``n``.
 Host precompute stays in numpy f64: the per-pair migration costs
 (``promo_pair_us``/``demo_pair_us``) are computed in f64 at construction
 and cast to f32 once at the lane stack, and ``interval_outcome_host`` is
-the f64 reference cost model — both exactly as the JAX package does.
+the f64 reference cost model (``tier_utilization_host`` its per-tier
+utilization) — both exactly as the JAX package does.
 Host-constructed specs therefore carry numpy leaves; ``lane_stack``
 returns tensors.
 """
@@ -212,3 +213,29 @@ def interval_outcome_host(spec: TieredMachineSpec, acc, mig_up, mig_down):
     app_raw = times[0] / max(t_lat, *times[1:], 1e-12)
     slow_raw = max(times[1:]) / max(t_lat, times[0], 1e-12)
     return wall, slow_share, app_raw, slow_raw
+
+
+def tier_utilization_host(spec: TieredMachineSpec, acc, mig_up, mig_down):
+    """f64 mirror of ``simjax.tier_utilization_impl``: each tier's
+    bandwidth time over the interval wall.  Returns f64 [R]."""
+    lat = np.asarray(spec.lat_ns, np.float64)
+    br = np.asarray(spec.bw_read, np.float64)
+    bw = np.asarray(spec.bw_write, np.float64)
+    R = lat.shape[0]
+    acc = np.asarray(acc, np.float64)
+    up = np.asarray(mig_up, np.float64)
+    down = np.asarray(mig_down, np.float64)
+
+    t_lat = float((acc * lat).sum()) * 1e-9 / float(spec.mlp)
+    times = [(acc[0] * CACHELINE + (up[0] + down[0]) * PAGE_BYTES) / br[0]]
+    for r in range(1, R):
+        rd = up[r - 1]
+        if r < R - 1:
+            rd = rd + down[r]
+        wr = down[r - 1]
+        if r < R - 1:
+            wr = wr + up[r]
+        times.append((acc[r] * CACHELINE + rd * PAGE_BYTES) / br[r]
+                     + wr * PAGE_BYTES / bw[r])
+    wall = max(t_lat, *times, 1e-12)
+    return np.asarray(times, np.float64) / wall

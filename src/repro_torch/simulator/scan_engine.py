@@ -1,21 +1,35 @@
-"""Interval scan engine + lane-batched ARMS sweeps, in torch.
+"""Interval scan engine + lane-batched sweeps, in torch, for every policy
+family of the functional protocol (baselines/protocol.py).
 
-The port of ``repro/simulator/scan_engine.py`` for trace replay of the
-ARMS policy.  One replay walks the trace interval by interval in a Python
-loop (JAX's ``lax.scan``); every carried array has an explicit leading
-lane axis ``[B, ...]`` (JAX's ``vmap``).  Per interval: PEBS sampling
-from a common-random-number field, the policy's observe/fires, the policy
-pass with the hop-chain migrations on intervals where some lane fires,
-and the interval cost model with the oracle recall.  The hot path goes
-through the four interval-step ops (kernels/interval_step): the EWMA
-score update and the top-k hot mask inside the policy, the migration
+The port of ``repro/simulator/scan_engine.py`` for trace replay.  One
+replay walks the trace interval by interval in a Python loop (JAX's
+``lax.scan``); every carried array has an explicit leading lane axis
+``[B, ...]`` (JAX's ``vmap``).  Per interval: PEBS sampling from a
+common-random-number field (or the true counts, for specs that want
+them), the policy's observe/fires, the policy pass with the migrations on
+intervals where some lane fires, and the interval cost model with the
+oracle recall.  The hot path goes through the interval-step ops
+(kernels/interval_step): ARMS's EWMA score update and top-k hot mask and
+the oracle's top-k target inside the policy, the hop-chain migration
 executor on fire intervals and the accounting every interval.
 
+Two routes.  Binary specs (ARMS, HeMem, Memtis, TPP, all-slow, oracle)
+emit promote/demote plans executed by the ``tier_migrate`` op.
+Tier-native specs (HybridTier, Jenga, TierBPF) take the tier-targeted
+route: the carry also holds the last interval's per-tier utilization
+(``simjax.tier_utilization_impl``), the policy emits ``(pages, dst)``
+moves through ``tier_policy`` and ``simjax.apply_targeted_migrations``
+executes them (plain torch, as it is plain XLA in JAX); up-moves count as
+promotions, down-moves as demotions.  ``tier_shim`` sends a binary spec
+down that route through the protocol's shim, bit for bit the hop-chain
+route.  TPP's hint-fault overhead (``slow_access_extra_ns``) is added to
+each interval's wall in JAX's f32 order.
+
 Entry points:
-  * ``simulate``             — one run of a spec, SimResult output;
+  * ``simulate``             — one run of any spec, SimResult output;
   * ``arms_sim``             — ARMS replay of a trace;
-  * ``sweep_policy_configs`` — one lane per config of the ARMS family,
-    sharing one CRN field;
+  * ``sweep_policy_configs`` — one lane per config of one policy family,
+    all lanes sharing one CRN field;
   * ``sweep_arms_configs``   — ARMS knob grid; the two mode-dependent
     observation grids are computed once and shared by all lanes.
 
@@ -31,8 +45,8 @@ outputs are the same).  Final [B] results are formed on the CPU.
 
 Waiting for later slices, each raising ``NotImplementedError``: the
 ``"prng"``/``"crn_prng"`` sampling modes (they need JAX's threefry in
-torch), the trace-synthesis path, the tier-native route and
-``tier_shim``, ``mixed_observation`` specs and the other policy families.
+torch), the trace-synthesis path and ``mixed_observation`` (union
+fabric) specs.
 """
 from __future__ import annotations
 
@@ -71,15 +85,9 @@ def _need_normal(trace, min_period: float) -> bool:
 
 
 def _check_spec(spec):
-    cls = type(spec)
-    if cls.tier_native:
-        raise NotImplementedError("the tier-native route is not ported yet")
-    if cls.mixed_observation:
+    if type(spec).mixed_observation:
         raise NotImplementedError(
             "mixed_observation (union fabric) specs are not ported yet")
-    if not isinstance(spec, ARMSSpec):
-        raise NotImplementedError(
-            f"policy family {spec.name!r} is not ported yet (ARMS only)")
 
 
 def _mach_lanes(machine, B: int, n: int, k: int, device):
@@ -112,7 +120,8 @@ def _precompute_observations(trace, u, periods: tuple, need_normal: bool):
 
 
 def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
-              need_normal: bool, reduce: str = "stack"):
+              need_normal: bool, reduce: str = "stack",
+              tier_shim: bool = False):
     """Batched replay on ``trace``'s device; returns a dict of [B] CPU
     results (+ [B, T] timelines under ``reduce="stack"``).
 
@@ -120,7 +129,8 @@ def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
     leaves and ``caps`` its resolved i32 [B, R] capacities; ``trace`` f32
     [T, n] and ``oracle`` bool [T, n] are shared by all lanes.  ``sample``
     is the [T, n] uniform field (``"crn"``) or the [T, P, n] observation
-    grids (``"pre"``).
+    grids (``"pre"``).  Tier-native specs, and binary ones under
+    ``tier_shim``, take the tier-targeted route (module docstring).
     """
     if reduce not in ("stack", "stream") or sampling not in ("crn", "pre"):
         raise ValueError(f"reduce={reduce!r} / sampling={sampling!r}")
@@ -129,6 +139,8 @@ def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
     dev = trace.device
     f32, i32 = torch.float32, torch.int32
     R = caps.shape[-1]
+    cls = type(spec)
+    tn = cls.tier_native or tier_shim
 
     state = spec.init(n, k, mach)
     tier = torch.full((B, n), R - 1, dtype=i32, device=dev)  # all at bottom
@@ -138,16 +150,24 @@ def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
     zi = lambda: torch.zeros((B,), dtype=i32, device=dev)
     slow_bw = torch.ones((B,), dtype=f32, device=dev)  # all pages start slow
     app_bw = zf()
+    tier_util = torch.zeros((B, R), dtype=f32, device=dev)
     exec_time, acc_fast_total, acc_total, recall_sum = zf(), zf(), zf(), zf()
     promotions, demotions, wasteful = zi(), zi(), zi()
     zpair = torch.zeros((B, R - 1), dtype=i32, device=dev)
     slow_sum, hits_sum, mode_sum, promos_max = zf(), zf(), zi(), zi()
     ys = {"slow": [], "hits": [], "mode": [], "promos": []}
+    # the policy mechanism's overhead a slow access, in JAX's f32 order:
+    # wall + acc_slow * f32(extra) * f32(1e-9) / mlp
+    extra = (torch.full((), cls.slow_access_extra_ns, dtype=f32, device=dev)
+             if cls.slow_access_extra_ns else None)
+    nano = torch.full((), 1e-9, dtype=f32, device=dev)
 
     for t in range(T):
         true_b = trace[t][None].expand(B, n)
         orc_b = oracle[t][None].expand(B, n)
-        if sampling == "pre":
+        if cls.wants_true_counts:
+            observed = true_b
+        elif sampling == "pre":
             observed = sample[t].index_select(0, spec.obs_index(state).long())
         else:
             period = spec.sampling_period(state)[:, None]
@@ -155,8 +175,20 @@ def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
                 sample[t][None], true_b, period, need_normal=need_normal)
         state = spec.observe(state, observed)
         do = spec.fires(state)                                   # [B]
+        fire = bool(do.any())   # the interval's one host sync
 
-        if bool(do.any()):
+        if fire and tn:
+            st2, pages, dst = spec.tier_policy(state, tier_util, slow_bw,
+                                               app_bw, k, caps)
+            state = bwhere(do, st2, state)
+            pages = torch.where(do[:, None], pages, -1)
+            tier, up_exec, down_exec, mig_up, mig_down = \
+                simjax.apply_targeted_migrations(tier, pages, dst, caps)
+            waste, promoted_at, demoted_at = simjax.wasteful_update(
+                t, promoted_at, demoted_at, pages, pages, up_exec, down_exec)
+            n_promo = up_exec.sum(dim=1, dtype=i32)
+            n_demo = down_exec.sum(dim=1, dtype=i32)
+        elif fire:
             st2, promote, demote = spec.policy(state, slow_bw, app_bw, k)
             # lanes whose policy is not due keep their state; their plans
             # are blanked so no migrations execute.
@@ -175,6 +207,12 @@ def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
         acc_fast, acc_slow, wall, slow_share, app_raw, recall = \
             interval_ops.interval_account(mach, true_b, tier, mig_up.float(),
                                           mig_down.float(), orc_b, k)
+        if extra is not None:
+            # TPP's NUMA hint faults are taken on slow-tier accesses
+            wall = wall + acc_slow * extra * nano / mach.mlp
+        if tn:
+            tier_util = simjax.tier_utilization_impl(
+                mach, true_b, tier, mig_up.float(), mig_down.float())
 
         slow_bw = slow_share
         # consumer-side clamp of the raw tier-0 utilization: the policy
@@ -272,15 +310,14 @@ def _inputs(trace, k: int, sample_u, device):
 def simulate(spec, trace, machine, k: int, seed: int = 0, sample_u=None,
              name: str | None = None, tier_shim: bool = False,
              device=None) -> SimResult:
-    """Replay of ``trace`` [T, n] under an ARMS spec with the CRN field
+    """Replay of ``trace`` [T, n] under any policy spec with the CRN field
     ``sample_u`` [T, n] (``sampling.uniform_field``); ``machine`` is a
-    registry name / MachineSpec / TieredMachineSpec.  ``seed`` only
+    registry name / MachineSpec / TieredMachineSpec.  ``tier_shim=True``
+    sends a binary spec through the tier-targeted executor via the
+    protocol's shim (bit for bit the hop-chain route).  ``seed`` only
     selects the PRNG sampling path, which waits."""
     if sample_u is None:
         raise NotImplementedError(_PRNG_WAITS)
-    if tier_shim:
-        raise NotImplementedError("tier_shim (the tier-native route) is not "
-                                  "ported yet")
     _check_spec(spec)
     dev = resolve_device(device)
     trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
@@ -288,7 +325,8 @@ def simulate(spec, trace, machine, k: int, seed: int = 0, sample_u=None,
     mach, caps = _mach_lanes(machine, 1, n, k, dev)
     out = _simulate(lane_specs(spec, 1).to(dev), trace_d, oracle, k, mach,
                     caps, u, "crn",
-                    _need_normal(trace, spec.min_sampling_period()))
+                    _need_normal(trace, spec.min_sampling_period()),
+                    tier_shim=tier_shim)
     _record_dispatch(lanes=1, sampling="crn", policy=spec.name, T=T,
                      reduce="stack", device=str(dev))
     return _to_result(out, 0, name or spec.name)
@@ -302,10 +340,11 @@ def sweep_seeds(trace, machine, k: int, seeds, cfg=None, spec=None,
 def sweep_policy_configs(spec_family, trace, machine, k: int, configs,
                          sim_seed: int = 0, sample_u=None, device=None
                          ) -> list[SimResult]:
-    """Lane-batched sweep over one policy family's knob grid (ARMS family:
-    ``spec_family`` maps a config dict to an ``ARMSSpec``).  All lanes
-    share ONE CRN field (``sample_u`` or ``uniform_field(T, n,
-    seed=sim_seed)``), so config comparisons are paired."""
+    """Lane-batched sweep over one policy family's knob grid:
+    ``spec_family`` maps a config dict to a spec (e.g. ``HeMemSpec.make``),
+    one lane per config.  All lanes share ONE CRN field (``sample_u`` or
+    ``uniform_field(T, n, seed=sim_seed)``), so config comparisons are
+    paired."""
     configs = list(configs)
     if not configs:
         raise ValueError("sweep_policy_configs needs at least one config")

@@ -1,15 +1,18 @@
 """Engine-side bookkeeping of the scan engine, lane-batched in torch.
 
-The port of ``repro/simulator/simjax.py`` for the binary hop-chain route:
-the interval cost model (``tier_access_split``, ``_tier_times``,
-``tier_interval_outcome``, ``interval_accounting_impl``), the hop-chain
-migration executor (``apply_tier_migrations``), the two-tier boolean
-executor of the serving pools (``apply_padded_migrations``,
-``apply_migrations``) and the wasteful-migration accounting
-(``wasteful_update``).  Every function takes an explicit lane
-axis: rows are ``[B, n]``, machine leaves ``[B, R]``, per-lane scalars
-``[B]``.  The cost model and the migration executor are the plain versions
-behind the ``interval_account`` and ``tier_migrate`` kernels.
+The port of ``repro/simulator/simjax.py``: the interval cost model
+(``tier_access_split``, ``_tier_times``, ``tier_interval_outcome``,
+``interval_accounting_impl``), the per-tier utilization signal of the
+tier-native policies (``tier_utilization_impl``), the hop-chain migration
+executor (``apply_tier_migrations``), the tier-targeted executor
+(``apply_targeted_migrations``), the two-tier boolean executor of the
+serving pools (``apply_padded_migrations``, ``apply_migrations``) and the
+wasteful-migration accounting (``wasteful_update``).  Every function takes
+an explicit lane axis: rows are ``[B, n]``, machine leaves ``[B, R]``,
+per-lane scalars ``[B]``.  The cost model and the hop-chain executor are
+the plain versions behind the ``interval_account`` and ``tier_migrate``
+kernels; the targeted executor and the utilization signal are plain
+torch, as they are plain XLA in the JAX package.
 
 Placement is an i32 per-page tier index (0 = fastest).  Migrations are
 adjacent-pair hop chains; the bottom tier's access count is the f32
@@ -30,6 +33,12 @@ import torch
 from repro_torch.simulator.engine import WASTE_WINDOW
 from repro_torch.simulator.machine import CACHELINE, PAGE_BYTES
 from repro_torch.utils.pytree import scatter_drop
+
+#: destination sentinel of tier-targeted moves: "the first tier below the
+#: page's source with room", the hop-chain demotion cascade.  The binary
+#: shim (``protocol.PolicySpec.tier_policy``) emits its demotions with it,
+#: which makes the shim bit for bit the hop-chain route.
+DST_BELOW = -2
 
 
 def tier_access_split(true, tier, R: int):
@@ -113,6 +122,19 @@ def interval_accounting_impl(mach, true_counts, tier, mig_up, mig_down):
     return accs[0], acc_slow, wall, slow_share, app_raw
 
 
+def tier_utilization_impl(mach, true_counts, tier, mig_up, mig_down):
+    """Per-tier bandwidth utilization f32 [B, R]: each tier's bandwidth
+    time over the interval's wall time, the tier-native policies' signal
+    (``scheduler.pair_budgets``).  Neutral padded tiers (bw inf) report
+    0.  The access sums round once from f64 (module docstring)."""
+    R = mach.lat_ns.shape[-1]
+    accs, _ = tier_access_split(true_counts, tier, R)
+    t_lat, times = _tier_times(mach, accs, mig_up.float(), mig_down.float())
+    stack = torch.stack(times, dim=1)
+    wall = torch.clamp_min(torch.maximum(t_lat, stack.amax(dim=1)), 1e-12)
+    return stack / wall[:, None]
+
+
 # ------------------------------------------------------------- migrations
 def _count(mask):
     return mask.sum(dim=1, dtype=torch.int32)
@@ -161,6 +183,65 @@ def apply_tier_migrations(tier, promote, demote, caps):
     mig_down = torch.stack([_count(dexec & (src <= j) & (dest > j))
                             for j in range(R - 1)], dim=1)
     return tier, pexec, dexec, mig_up, mig_down
+
+
+def apply_targeted_migrations(tier, pages, dst, caps):
+    """Tier-targeted migrations over lanes: each valid entry of ``pages``
+    i32 [B, m] (``-1`` padded, priority order, unique per direction)
+    requests a move to ``dst[b, i]``; ``DST_BELOW`` resolves to the first
+    tier below the source with room (the hop-chain cascade).
+
+    Down moves (resolved dst > src) run first, in priority order, each
+    landing at the shallowest tier r >= its dst with room (the bottom
+    always has room).  Up moves then run per destination tier, shallowest
+    first, against the occupancy after the downs and the earlier ups; a
+    request that does not fit its exact destination is dropped.  With the
+    binary shim's plans every expression reduces to
+    ``apply_tier_migrations``'s, so the results are bit for bit the same.
+    Sentinel entries after a plan's real moves change nothing (invalid
+    entries join neither phase, and the admission ranks count only
+    candidates).  Returns (tier, up_exec, down_exec, mig_up, mig_down),
+    the executed masks aligned with ``pages``."""
+    R = caps.shape[-1]
+    i32 = torch.int32
+    valid = pages >= 0
+    safe = torch.where(valid, pages, 0).long()
+    src = tier.gather(1, safe)
+    dst = torch.where(dst == DST_BELOW, src + 1, dst)
+    dst = torch.clamp(dst, 0, R - 1)
+    down = valid & (dst > src)           # src == R-1 can never move down
+
+    dest = torch.full_like(pages, R - 1)
+    landed = torch.zeros_like(down)
+    for r in range(1, R - 1):
+        # occupancy after departures: every down-mover leaves its source
+        occ_r = _count(tier == r) - _count(down & (src == r))
+        cand = down & (~landed) & (dst <= r)
+        rank = torch.cumsum(cand.to(i32), dim=1) - 1
+        land = cand & (rank < (caps[:, r] - occ_r)[:, None])
+        dest = torch.where(land, r, dest)
+        landed = landed | land
+    tier = scatter_drop(tier, pages, dest, down)
+    mig_down = torch.stack([_count(down & (src <= j) & (dest > j))
+                            for j in range(R - 1)], dim=1)
+
+    # up phase: destination tiers shallowest first; sources re-read from
+    # the updated placement, so room freed by ups out of a tier is seen
+    # by ups into it.
+    up_exec = torch.zeros_like(down)
+    up_from = torch.zeros_like(pages)
+    for r in range(R - 1):
+        u_src = tier.gather(1, safe)
+        cand = valid & (~down) & (dst == r) & (u_src > r)
+        room = caps[:, r] - _count(tier == r)
+        rank = torch.cumsum(cand.to(i32), dim=1) - 1
+        take = cand & (rank < room[:, None])
+        up_from = torch.where(take, u_src, up_from)
+        tier = scatter_drop(tier, pages, r, take)
+        up_exec = up_exec | take
+    mig_up = torch.stack([_count(up_exec & (up_from > j) & (dst <= j))
+                          for j in range(R - 1)], dim=1)
+    return tier, up_exec, down, mig_up, mig_down
 
 
 def wasteful_update(t: int, promoted_at, demoted_at, promote, demote, pexec,

@@ -176,3 +176,29 @@ def mamba_case(B, S, H, P, N, seed, model_like=False):
         dt = rng.uniform(0.1, 0.9, (B, S, H)).astype(np.float32)
         A = -rng.uniform(0.5, 2.0, (H,)).astype(np.float32)
     return x, dt, A, Bm, Cm, f(B, S, H, P), f(B, H, P, N)
+
+
+def same_result(a, b):
+    """The replay contract between two SimResults (DESIGN.md §2):
+    promotions, demotions, wasteful and the integer timelines exact;
+    exec_time within 1e-4 relative; hot_recall and fast_hit_frac within
+    1e-6; the slow-share timeline within 1e-5 (a ratio of access sums that
+    the JAX package accumulates in f32 and the port rounds once from
+    f64)."""
+    assert (a.promotions, a.demotions, a.wasteful) == \
+        (b.promotions, b.demotions, b.wasteful), (a.name, b.name)
+    np.testing.assert_allclose(a.exec_time_s, b.exec_time_s, rtol=1e-4)
+    assert abs(a.hot_recall - b.hot_recall) <= 1e-6
+    assert abs(a.fast_hit_frac - b.fast_hit_frac) <= 1e-6
+    np.testing.assert_array_equal(a.timeline_mode, b.timeline_mode)
+    np.testing.assert_array_equal(a.timeline_promotions,
+                                  b.timeline_promotions)
+    np.testing.assert_allclose(a.timeline_slow_bw, b.timeline_slow_bw,
+                               rtol=1e-5, atol=0)
+
+
+def ranked_keys(rng, B, n):
+    """f32 [B, n] keys with repeated values and both signed zeros."""
+    x = (rng.integers(-3, 4, (B, n)) * 0.5).astype(np.float32)
+    x[rng.random((B, n)) < 0.2] = -0.0
+    return x

@@ -117,7 +117,8 @@ def _migrate_on_card(card, case):
 
 # rows shorter than one CTA's slice; the sweep's 16 x 65,536 at 2 and 3
 # tiers and arms_sim's 1 x 65,536 (lanes on clusters); 8 tiers with n not a
-# multiple of 4; plans of MAX_PLAN entries
+# multiple of 4; plans of 1,024 entries, the widest that are staged in
+# shared memory
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,R,P,D", [(2, 13, 2, 3, 4), (3, 29, 3, 5, 5),
                                        (4, 64, 4, 8, 8),
@@ -130,6 +131,23 @@ def test_migrate_kernel_vs_plain(card, B, n, R, P, D):
     got, want = _migrate_on_card(card, migrate_case(B, n, R, P, D, n + R))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# plan widths P/D past the staged route's 1,024: TPP's 12-entry promotions
+# and k-wide demotions, both of the oracle's plans k wide (k = 8,192 at
+# n = 65,536), a ragged 1,025/33; and ARMS's 64/64 on the staged route
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [2, 3])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("P,D", [(12, 8192), (8192, 8192), (1025, 33),
+                                 (64, 64)])
+def test_migrate_kernel_wide_plans(card, B, R, P, D):
+    n = 65536
+    for case in (migrate_case(B, n, R, P, D, P + D + R),
+                 migrate_edge_case(B, n, R, P, D, P + D + R, "both")):
+        got, want = _migrate_on_card(card, case)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda

@@ -114,18 +114,15 @@ def test_waiting_paths_raise():
     with pytest.raises(NotImplementedError):
         pscan.arms_sim(trace, "pmem-large", K, device="cpu")   # PRNG path
     with pytest.raises(NotImplementedError):
-        pscan.simulate(PSpec.make(), trace, "pmem-large", K,
-                       sample_u=uniform_field(T, N), tier_shim=True,
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
         pscan.simulate_workload()
     with pytest.raises(NotImplementedError):
         pscan.sweep_seeds(trace, "pmem-large", K, [0, 1])
 
-    class Other(PolicySpec):
-        name = "other"
+    class Union(PolicySpec):   # a union-fabric spec mixing observation kinds
+        name = "union"
+        mixed_observation = True
     with pytest.raises(NotImplementedError):
-        pscan.simulate(Other(), trace, "pmem-large", K,
+        pscan.simulate(Union(), trace, "pmem-large", K,
                        sample_u=uniform_field(T, N), device="cpu")
 
 

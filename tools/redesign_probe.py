@@ -36,6 +36,10 @@ Phases (all by default):
             and 511) and at the 2,048-entry table (511 and 32,767), at the
             cluster size it chooses, each held to the plain version within
             1e-5;
+  stage     ``tier_migrate`` at the ab phase's shapes from a copy of the
+            interval-step source as it is and one whose every plan takes
+            the streamed route (``MIGRATE_STAGE`` 0), each held to the
+            plain version bit for bit;
   products  one 64 x 64 x 64 product of the scan's backward (4,096 blocks,
             16 times over each block's tiles), f32 register tiles against
             3xTF32 ``mma.sync``, both held to the f64 product
@@ -299,6 +303,53 @@ def minblocks(out_dir: Path, counts):
              ptxas=lines)
 
 
+def stage(out_dir: Path):
+    """``tier_migrate`` at the ab phase's shapes (64-entry plans) from two
+    copies of the interval-step source: as it is (plans of up to
+    ``MIGRATE_STAGE`` entries staged in shared memory) and with
+    ``MIGRATE_STAGE`` 0 (every plan streamed), each held to the plain
+    version bit for bit."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import _backend
+    from repro_torch.kernels.interval_step import kernel, ref
+    cc, flags = nvcc_flags(ROOT)
+    text = kernel.SOURCE.read_text()
+    line = re.search(r"#define MIGRATE_STAGE \d+", text).group(0)
+    rng = np.random.default_rng(0)
+    inputs = {(lanes, machine): migrate_args(lanes, machine, rng)
+              for lanes, machine in MIGRATE_SHAPES}
+    for n in (int(line.split()[-1]), 0):
+        root = out_dir / f"stage{n}" / "kernels"
+        src = root / "interval_step" / "csrc" / "interval_step.cu"
+        src.parent.mkdir(parents=True, exist_ok=True)
+        for h in _backend.HEADERS.glob("*.cuh"):
+            (root / h.name).write_text(h.read_text())
+        src.write_text(text.replace(line, f"#define MIGRATE_STAGE {n}"))
+        lib_path = src.with_suffix(".so")
+        proc = subprocess.run([cc, *flags, "-o", str(lib_path), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(proc.stderr)
+        lib = ctypes.CDLL(str(lib_path))
+        for fn, argtypes in kernel._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        kernel._lib = lambda lib=lib: lib
+        _backend.clusters.clear()
+        row = {}
+        for (lanes, machine), args in inputs.items():
+            same = all(torch.equal(g, w) for g, w in zip(
+                kernel.tier_migrate(*args), ref.tier_migrate_ref(*args)))
+            row[f"B={lanes} n={PAGES} {machine}"] = (
+                cs.cuda_ms(kernel.tier_migrate,
+                           cs.copies(args, 8 * PAGES * lanes)), same)
+        emit(phase="stage", migrate_stage=n, ms_equal_plain=row)
+
+
 def products(out_dir: Path):
     import numpy as np
     import torch
@@ -347,7 +398,7 @@ def main():
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--only", nargs="*",
                     default=["ptxas", "ab", "clusters", "minblocks",
-                             "products"])
+                             "stage", "products"])
     ap.add_argument("--blocks", type=int, nargs="*", default=[0, 1, 4, 6],
                     help="the minblocks phase's resident CTAs an SM")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
@@ -387,6 +438,8 @@ def main():
         clusters()
     if "minblocks" in args.only:
         minblocks(out_dir, args.blocks)
+    if "stage" in args.only:
+        stage(out_dir)
     if "products" in args.only:
         products(out_dir)
 
