@@ -17,7 +17,8 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      computing the same function: the interval-step kernels at 16 lanes,
      n = 65,536 pages, k = 8,192, 2 and 3 tiers, 64-entry plans (the top-k
      mask, the migrations and the accounting also at ``arms_sim``'s one
-     lane, lines of their own; the migrations also at TPP's plan widths,
+     lane, and the top-k mask at the synthesis oracle's nine rows, lines
+     of their own; the migrations also at TPP's plan widths,
      12 promotions and 8,192 demotions, and the oracle's, 8,192 each,
      lines of their own); the page
      migration and paged attention at the serving path's full-width
@@ -38,14 +39,14 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      with the device time of each pass of one forward and one backward by
      kernel name (``torch.profiler``), and at reduced mamba2-370m's, held
      to the plain version in f32;
-  3. main path, fourteen paths, each with every launch count set to 0 just
+  3. main path, eighteen paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
      ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
      k = 8,192, T = 4,096 with the streaming reduction; ``arms_sim`` on
      the 3-tier ``dram-cxl-pmem`` at T = 1,024, on a GUPS-like trace made
      with numpy from ``--seed``; then the other policy families at the
-     same width on the first T = 1,024 intervals of that trace and CRN
+     same width on the first T = 512 intervals of that trace and CRN
      field: ``sweep_policy_configs`` over 16-lane knob grids of HeMem,
      Memtis and TPP on ``pmem-large`` (binary route: ``tier_migrate`` and
      ``interval_account``) and of Jenga and TierBPF (16 lanes) and
@@ -55,7 +56,17 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      ARMS, HeMem,
      Memtis, TPP, all-slow and the oracle at their defaults on
      ``pmem-large``, each exec time over all-slow's (the paper's Fig. 1
-     normalisation); then ``launch.serve.serve`` decoding 512
+     normalisation); then the trace-synthesis path at the same width,
+     T = 1,024, the paper's nine workloads synthesized on the card:
+     ``sweep_workload_configs`` of four ARMS configs over the nine (36
+     lanes; its first 128 intervals under the profiler),
+     ``sweep_workloads`` of the nine for ARMS, HeMem, Memtis, TPP,
+     all-slow and the oracle at their defaults (each exec time over
+     all-slow's, per workload), the adversarial scenario suite under
+     ARMS (7 lanes) and ``sweep_seeds`` of ARMS over 16 seeds on the
+     first 1,024 intervals of the trace (PRNG sampling), with the device
+     time of each kind of threefry draw; then ``launch.serve.serve``
+     decoding 512
      greedy tokens at batch 8 of granite-8b at its full width and depth
      (36 layers, d_model 4,096, bf16, random weights from the seed) with
      layer 0's KV pages tiered by ARMS; then ``launch.train.train``
@@ -85,7 +96,12 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      exact, exec_time within 1e-4 relative), for ARMS and for each other
      policy family (4 lanes of its grid, k = 1,536), and on the card
      ``tier_shim=True`` bit for bit the hop-chain route for the six binary
-     families; the serving loop at reduced
+     families; the threefry keys, splits, rows and permutations on the
+     card and on the CPU (bit for bit, n up to 65,536), a synthesized
+     4-workload x 2-config ARMS sweep at n = 4,096, T = 256 on both
+     (counts exact, exec_time within 1e-4 relative), and on the card a
+     synthesized run bit for bit the replay of its materialized trace with
+     the synthesized noise rows; the serving loop at reduced
      granite-8b (48 tokens, batch 2, pages of 8) on the card and on the
      CPU with the same weights and streams (plans, residency, slots and
      tokens exact; attention mass, fast-mass share and pools within 1e-5);
@@ -145,9 +161,11 @@ from repro_torch.models import mamba2 as Mb  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.simulator import (machine_spec, machines,  # noqa: E402
-                                   scan_engine)
+                                   scan_engine, scenarios, workload_spec)
 from repro_torch.tiering import paged_kv as PK  # noqa: E402
-from repro_torch.simulator.sampling import uniform_field  # noqa: E402
+from repro_torch.simulator.sampling import (  # noqa: E402
+    synth_noise_field, uniform_field)
+from repro_torch.utils import prng  # noqa: E402
 from repro_torch.utils.pytree import (flatten_with_path, leaves,  # noqa: E402
                                       map_leaves)
 from repro_torch.utils.pytree import unflatten  # noqa: E402
@@ -306,20 +324,28 @@ def kernel_phase(dev, rng):
                 bound_by=by, library_ms=lib_ms)
 
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    # ewma_update: scores of 16 lanes, per-lane params
-    args = tuple(f(rng.random((B, N), dtype=np.float32)) for _ in range(3))
-    args += (f(rng.random((B, 4), dtype=np.float32)),)
-    entry("ewma_update", f"B={B} n={N}", kernel.ewma_update,
-          ref.ewma_score_update_ref, args, True,
-          nbytes(*args) + 3 * 4 * B * N, 6 * B * N)
+    # every lane count of the main path: the sweep's 16 lanes (the JSON
+    # line's shape; also sweep_seeds'), arms_sim's one and the synthesis
+    # paths' (each kernel picks its cluster size by lanes and pages)
+    syn = syn_lanes()
+    L = max((B,) + syn)
+    # ewma_update: scores, per-lane params
+    full = tuple(f(rng.random((L, N), dtype=np.float32)) for _ in range(3))
+    full += (f(rng.random((L, 4), dtype=np.float32)),)
+    for lanes in (B, 1) + syn:
+        args = tuple(a[:lanes] for a in full)
+        entry("ewma_update", f"B={lanes} n={N}", kernel.ewma_update,
+              ref.ewma_score_update_ref, args, True,
+              nbytes(*args) + 3 * 4 * lanes * N, 6 * lanes * N)
+    del full
 
-    # topk_mask: hotness scores with ties and signed zeros, at the sweep's
-    # 16 lanes (the JSON line's shape) and at arms_sim's single lane
+    # topk_mask: hotness scores with ties and signed zeros (at 9 and 7
+    # lanes also the synthesis oracle's [W, n] workload rows)
     def library(x, k):
         m = torch.zeros(x.shape, dtype=torch.bool, device=dev)
         return m.scatter_(1, torch.topk(x, k, dim=1).indices, True)
 
-    for lanes in (B, 1):
+    for lanes in (B, 1) + syn:
         x = f((rng.integers(-4, 2000, (lanes, N)) * 0.5).astype(np.float32))
         x[:, ::97] = -0.0
         entry("topk_mask", f"B={lanes} n={N} k={K}", kernel.topk_mask,
@@ -329,17 +355,18 @@ def kernel_phase(dev, rng):
     for mname in ("pmem-large", "dram-cxl-pmem"):
         spec = machines.get(mname)
         R = spec.n_tiers
-        mach, caps = machine_spec.lane_stack([spec] * B, N, K, dev)
+        # the sweeps' lanes; on the 3-tier machine arms_sim's single lane,
+        # on the 2-tier one the synthesis paths' lanes
+        lane_sets = (B, 1) if R == 3 else (B,) + syn
+        _, caps = machine_spec.lane_stack([spec] * L, N, K, dev)
         # tier_migrate: plans honouring the unique-index contract
-        tier = f(rng.integers(0, R, (B, N)).astype(np.int32))
-        plans = np.full((2, B, PLAN), -1, np.int32)
-        for b in range(B):
+        tier = f(rng.integers(0, R, (L, N)).astype(np.int32))
+        plans = np.full((2, L, PLAN), -1, np.int32)
+        for b in range(L):
             perm = rng.permutation(N)[:2 * PLAN]
             plans[0, b] = perm[:PLAN]
             plans[1, b, :PLAN // 2] = perm[PLAN:PLAN + PLAN // 2]
-        # at the sweep's 16 lanes and, on the 3-tier machine, at arms_sim's
-        # single lane
-        for lanes in (B, 1) if R == 3 else (B,):
+        for lanes in lane_sets:
             args = tuple(a[:lanes] for a in (tier, f(plans[0]),
                                              f(plans[1]), caps))
             entry("tier_migrate", f"B={lanes} n={N} R={R} P=D={PLAN}",
@@ -347,22 +374,28 @@ def kernel_phase(dev, rng):
                   nbytes(*args) + nbytes(args[0]) + 2 * lanes * PLAN
                   + 8 * lanes * (R - 1), 4 * lanes * N)
 
-        if R == 2:
-            wide_plan_rows(entry, f, rng, spec, tier.shape[0], dev)
+        if R == 2:   # the sweeps' and the nine-workload family sweeps'
+            for lanes in (B, syn[1]):
+                wide_plan_rows(entry, f, rng, spec, lanes, dev)
 
-        # interval_account: one trace row shared by every lane, held to the
-        # plain version bit for bit (f64 sums rounded once, the same f32
-        # epilogue); at the sweep's 16 lanes and, on the 3-tier machine,
-        # at arms_sim's single lane
+        # interval_account, held to the plain version bit for bit (f64
+        # sums rounded once, the same f32 epilogue): a materialized trace's
+        # row shared by every lane (B 16 and 1), or a synthesized row a
+        # lane (the synthesis paths)
         true = f((2e7 / N * rng.gamma(1.0, 1.0, N)).astype(np.float32))
         orc = ref.topk_mask_ref(true[None], K)[0]
-        up = f(rng.integers(0, PLAN, (B, R - 1)).astype(np.float32))
-        down = f(rng.integers(0, PLAN, (B, R - 1)).astype(np.float32))
-        for lanes in (B, 1) if R == 3 else (B,):
-            m = mach if lanes == B else machine_spec.lane_stack(
-                [spec], N, K, dev)[0]
-            args = (m, true[None].expand(lanes, N), tier[:lanes],
-                    up[:lanes], down[:lanes], orc[None].expand(lanes, N), K)
+        up = f(rng.integers(0, PLAN, (L, R - 1)).astype(np.float32))
+        down = f(rng.integers(0, PLAN, (L, R - 1)).astype(np.float32))
+        for lanes in lane_sets:
+            m = machine_spec.lane_stack([spec] * lanes, N, K, dev)[0]
+            if lanes in (B, 1):
+                rows_, orcs = (x[None].expand(lanes, N) for x in (true, orc))
+            else:
+                rows_ = f((2e7 / N * rng.gamma(1.0, 1.0, (lanes, N)))
+                          .astype(np.float32))
+                orcs = ref.topk_mask_ref(rows_, K)
+            args = (m, rows_, tier[:lanes], up[:lanes], down[:lanes], orcs,
+                    K)
             entry("interval_account", f"B={lanes} n={N} R={R} k={K}",
                   ops.interval_account, ref.interval_account_ref, args, True,
                   nbytes(m.lat_ns, m.bw_read, m.bw_write, m.mlp, *args[1:6])
@@ -372,6 +405,13 @@ def kernel_phase(dev, rng):
     flash_rows(rows, rng)
     mamba_rows(rows, rng)
     return rows
+
+
+def syn_lanes() -> tuple:
+    """Lane counts of the synthesis paths: the named sweep (configs x
+    workloads), the nine-workload family sweeps and the scenario suite."""
+    W = len(workload_spec.NAMED_WORKLOADS)
+    return len(SYN_CONFIGS) * W, W, len(scenarios.suite(N, K))
 
 
 # (label, P, D, valid promotions, valid demotions): TPP's plans (12
@@ -926,6 +966,7 @@ def main_path(seed: int):
                  trace[:256], "pmem-large", K, GRID, sample_u=u[:256],
                  reduce="stream"))
     fams = policy_paths(trace[:T_POL], u[:T_POL])
+    synth = synth_paths(trace[:T_SYN], seed)
 
     rep, wall3, serve_counts = counted("serve", lambda: serve.serve(
         "granite-8b", n_tokens=SERVE_TOKENS, batch=SB, full=True, seed=seed,
@@ -983,14 +1024,15 @@ def main_path(seed: int):
     paths = ssm_paths(seed)
     ssm_consistency(seed)
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
-            **fams, "serve": serve_counts, "train": train_counts,
+            **fams, **synth, "serve": serve_counts, "train": train_counts,
             "train_ssm": ssm_counts, **paths}
 
 
 # the other policy families: knob grids of 16 lanes (12 for HybridTier) on
 # the binary route (2-tier pmem-large) and the tier-targeted route (3-tier
 # dram-cxl-pmem), at T_POL intervals of the main path's trace and CRN field
-T_POL = 1024   # cut from 2,048 to keep the whole script under 600 s
+T_POL = 512    # cut from 2,048, then from 1,024 (730 s with the build on
+#                an H100): the whole script under 700 s
 T_PROF = 128   # intervals of each family's profile window
 BINARY_KERNELS = ("tier_migrate", "interval_account")
 TIER_KERNELS = ("interval_account",)
@@ -1079,6 +1121,200 @@ def policy_paths(trace, u) -> dict:
     print(f"main path families: wall_s={wall:.3f} launches="
           f"{counts['families']}", flush=True)
     return counts
+
+
+# the trace-synthesis path: the paper's nine workloads and the scenario
+# suite synthesized on the card at the main path's width, T_SYN intervals
+T_SYN = 1024
+SYN_CONFIGS = [dict(alpha_s=a, noise_z=z) for a, z in ((0.5, 0.0), (0.7, 0.0),
+                                                      (0.5, 0.5), (0.7, 0.5))]
+SEEDS = 16     # lanes of sweep_seeds
+T_REF = 128    # intervals of the synthesis-against-reference comparison
+
+
+def synth_paths(trace, seed: int) -> dict:
+    """The trace-synthesis entry points at n = 65,536, k = 8,192 on
+    ``pmem-large``: ``sweep_workload_configs`` of four ARMS configs over
+    the nine named workloads (36 lanes; its first 128 intervals also under
+    the profiler), ``sweep_workloads`` of the nine for each binary family
+    at its defaults (exec time over all-slow's per workload), the
+    scenario suite under ARMS, and ``sweep_seeds`` of ARMS over 16 seeds
+    on the main path's trace (``"prng"`` sampling).  -> {path: launch
+    counts}."""
+    T_, n = T_SYN, N
+    named = [workload_spec.named(nm, T=T_)
+             for nm in workload_spec.NAMED_WORKLOADS]
+    counts = {}
+    mats = workload_spec.MATERIALIZE_CALLS
+    run = lambda T__: scan_engine.sweep_workload_configs(
+        lambda **kw: ARMSSpec.make(kw), SYN_CONFIGS, named, "pmem-large", K,
+        T__, n, sim_seed=seed, wl_seed=seed + 1)
+    res, wall, counts["synth_named"] = counted("synth_named",
+                                               lambda: run(T_))
+    lanes = len(named) * len(SYN_CONFIGS)
+    flat = [r for row in res for r in row]
+    s = summary(flat)
+    require(len(flat) == lanes and all(np.isfinite(s["exec_time_s"]))
+            and all(r.promotions > 0 for r in flat),
+            "synth_named: non-finite exec_time or a lane with no promotion")
+    print(f"main path synth sweep_workload_configs arms pmem-large: "
+          f"lanes={lanes} T={T_} n={n} k={K} wall_s={wall:.3f} "
+          f"lane_intervals_per_s={lanes * T_ / wall:.1f} "
+          f"promotions={s['promotions']} demotions={s['demotions']} "
+          f"wasteful={s['wasteful']} launches={counts['synth_named']}",
+          flush=True)
+    profiled(f"profile synth sweep_workload_configs T={T_PROF}",
+             lambda: run(T_PROF), top=16)
+    synth_reference(named, seed)
+
+    walls = {}
+
+    def compare():
+        out = {}
+        for fam, make in FAMILY_DEFAULTS:
+            t0 = time.time()
+            out[fam] = scan_engine.sweep_workloads(
+                named, "pmem-large", K, T_, n, spec=make(), sim_seed=seed,
+                wl_seed=seed + 1)
+            walls[fam] = time.time() - t0
+        return out
+
+    res, wall, counts["synth_families"] = counted(
+        "synth_families", compare,
+        ("ewma_update", "topk_mask") + BINARY_KERNELS)
+    base = res["all-slow"]
+    for fam, rows in res.items():
+        require(all(np.isfinite(r.exec_time_s) for r in rows),
+                f"synth {fam}: exec_time not finite")
+        require(fam != "all-slow" or all(r.promotions == 0 for r in rows),
+                "synth all-slow migrated a page")
+        ratios = " ".join(
+            f"{nm}={r.exec_time_s / b.exec_time_s:.4f}"
+            for nm, r, b in zip(workload_spec.NAMED_WORKLOADS, rows, base))
+        print(f"main path synth families pmem-large {fam}: T={T_} n={n} "
+              f"k={K} lanes={len(rows)} wall_s={walls[fam]:.3f} "
+              f"lane_intervals_per_s={len(rows) * T_ / walls[fam]:.1f} "
+              f"promotions={sum(r.promotions for r in rows)} "
+              f"vs_all_slow {ratios}", flush=True)
+    for i, nm in enumerate(workload_spec.NAMED_WORKLOADS):
+        order = sorted(res, key=lambda f: res[f][i].exec_time_s)
+        print(f"main path synth comparison {nm}: fastest first "
+              f"{' < '.join(order)}", flush=True)
+
+    suite = scenarios.suite(n, K)
+    res, wall, counts["synth_suite"] = counted(
+        "synth_suite", lambda: scan_engine.sweep_workloads(
+            suite, "pmem-large", K, T_, n, sim_seed=seed, wl_seed=seed + 1))
+    require(len(res) == len(suite)
+            and all(np.isfinite(r.exec_time_s) for r in res),
+            "synth_suite: non-finite exec_time")
+    print(f"main path synth scenario suite arms pmem-large: "
+          f"lanes={len(res)} T={T_} n={n} k={K} wall_s={wall:.3f} "
+          f"lane_intervals_per_s={len(res) * T_ / wall:.1f} "
+          + " ".join(f"{r.name}={r.exec_time_s:.4f}/{r.promotions}"
+                     for r in res) + f" launches={counts['synth_suite']}",
+          flush=True)
+    require(workload_spec.MATERIALIZE_CALLS == mats,
+            "a synthesized sweep materialized a trace")
+
+    seeds = list(range(seed, seed + SEEDS))
+    res, wall, counts["sweep_seeds"] = counted(
+        "sweep_seeds", lambda: scan_engine.sweep_seeds(
+            trace, "pmem-large", K, seeds))
+    s = summary(res)
+    require(all(np.isfinite(s["exec_time_s"])) and s["promotions"] > 0,
+            "sweep_seeds: non-finite exec_time or no promotions")
+    spread = max(s["exec_time_s"]) - min(s["exec_time_s"])
+    print(f"main path sweep_seeds arms pmem-large: lanes={SEEDS} T={T_} "
+          f"n={n} k={K} wall_s={wall:.3f} lane_intervals_per_s="
+          f"{SEEDS * T_ / wall:.1f} promotions={s['promotions']} "
+          f"exec_time_spread_s={spread:.6f} "
+          f"launches={counts['sweep_seeds']}", flush=True)
+    prng_costs(n)
+    return counts
+
+
+def synth_reference(named, seed: int):
+    """``workload_spec.Synth``, which the engine runs, against the
+    reference composition of the spec's own methods (``work_of(t) *
+    step(state, t)``), on the nine named workloads stacked as the engine
+    stacks them, the first T_REF intervals at n = 65,536: every row bit
+    for bit, and each one's wall (a warm-up of 4 intervals apart)."""
+    dev = torch.device("cuda")
+    stack = scan_engine._stack_workloads(named, dev)
+    key = prng.PRNGKey(seed + 1, dev)
+    boost = any(w.has_boost() for w in named)
+
+    def synth(T_):
+        syn = workload_spec.Synth(stack, N, key, boost, T_)
+        return [syn.row(t) for t in range(T_)]
+
+    def reference(T_):
+        st, out = stack.init(N, key), []
+        for t in range(T_):
+            st, probs = stack.step(st, t)
+            out.append(stack.work_of(st, t)[..., None] * probs)
+        return out
+
+    rows, walls = {}, {}
+    for label, fn in (("synth", synth), ("reference", reference)):
+        fn(4)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rows[label] = fn(T_REF)
+        torch.cuda.synchronize()
+        walls[label] = time.time() - t0
+    require(all(torch.equal(a, b) for a, b in zip(rows["synth"],
+                                                  rows["reference"])),
+            "synth: Synth's rows != the reference composition's")
+    W = len(named)
+    print(f"synth against reference: W={W} T={T_REF} n={N} rows bit for "
+          f"bit; Synth wall_s={walls['synth']:.3f} lane_intervals_per_s="
+          f"{W * T_REF / walls['synth']:.1f}; reference wall_s="
+          f"{walls['reference']:.3f} lane_intervals_per_s="
+          f"{W * T_REF / walls['reference']:.1f}", flush=True)
+
+
+def prng_costs(n: int, reps: int = 20):
+    """Device time and device kernels of one threefry draw of each kind
+    the synthesis and PRNG paths make (plain torch, no kernel of its own):
+    the shared ``"crn_prng"`` row, a 16-lane ``"prng"`` block with its key
+    split, and an event's permutation of n pages.  ``device_ms`` sums the
+    draw's kernels (``torch.profiler``); ``stream_ms`` is the mean CUDA
+    event time of ``reps`` draws back to back (host launch gaps
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(7, dev)
+    keys = torch.stack([prng.PRNGKey(s, dev) for s in range(SEEDS)])
+    draws = {
+        "crn_prng row [n]": lambda: prng.uniform(prng.fold_in(key, 5), (n,)),
+        f"prng block [{SEEDS}, n] + split": lambda: prng.uniform(
+            prng.split(keys)[:, 1], (n,)),
+        "permutation [n]": lambda: prng.permutation(
+            prng.fold_in(prng.fold_in(key, 1), 3), n),
+    }
+    for label, fn in draws.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("Activity Buffer")]
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        print(f"prng cost {label}: device_ms="
+              f"{sum(e.self_device_time_total for e in events) / 1e3:.4f} "
+              f"device_kernels={sum(e.count for e in events)} "
+              f"stream_ms={start.elapsed_time(end) / reps:.4f}", flush=True)
 
 
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 6, 2, 4096
@@ -1456,6 +1692,53 @@ def policy_check(seed: int):
               f"the card, promotions {' '.join(shims)}", flush=True)
 
 
+def synth_check(seed: int, n: int = 4096, T_: int = 256, k: int = 512):
+    """The PRNG and the synthesis path on the card against the CPU: keys,
+    splits, uniform rows and permutations bit for bit (n up to 65,536); a
+    synthesized 4-workload x 2-config ARMS sweep at n = 4,096, T = 256
+    (counts exact, exec_time within 1e-4 relative); and, on the card, a
+    synthesized run bit for bit its own replay of the materialized trace
+    with the synthesized noise rows."""
+    keys = torch.stack([prng.PRNGKey(s) for s in (seed, seed + 1, 99)])
+    for m in (1, 5, 1626, 4096, 65536):
+        for label, fn in (
+                ("split", lambda k_: prng.split(k_, 3)),
+                ("fold_in", lambda k_: prng.fold_in(k_, torch.arange(3))),
+                ("uniform", lambda k_: prng.uniform(k_, (m,))),
+                ("permutation", lambda k_: prng.permutation(k_, m))):
+            require(torch.equal(fn(keys.cuda()).cpu(), fn(keys)),
+                    f"prng {label} n={m}: card != cpu")
+    wls = [workload_spec.named(nm, T=T_)
+           for nm in ("gups", "silo-tpcc", "gapbs-bc", "btree")]
+    fam = lambda **kw: ARMSSpec.make(kw)
+    cfgs = SYN_CONFIGS[1::2]
+    runs = [scan_engine.sweep_workload_configs(
+        fam, cfgs, wls, "pmem-large", k, T_, n, sim_seed=seed,
+        wl_seed=seed + 1, device=dev) for dev in ("cuda", "cpu")]
+    for rc, rg in zip(*runs):
+        for a, b in zip(rc, rg):
+            same_runs(a, b, f"synth {a.name}")
+    promos = [r.promotions for row in runs[0] for r in row]
+    require(len(set(promos)) > 1, f"synth: every lane took one path "
+            f"({promos})")
+    wl = workload_spec.named("gapbs-bc", T=T_)
+    syn = scan_engine.simulate_workload(ARMSSpec.make(), wl, "pmem-large",
+                                        k, T_, n, sim_seed=seed,
+                                        wl_seed=seed + 1)
+    rep = scan_engine.simulate(
+        ARMSSpec.make(), wl.materialize(T_, n, seed=seed + 1), "pmem-large",
+        k, sample_u=synth_noise_field(T_, n, seed=seed), name=syn.name)
+    require(all(getattr(syn, f) == getattr(rep, f) for f in (
+        "exec_time_s", "promotions", "demotions", "wasteful", "hot_recall",
+        "fast_hit_frac")) and np.array_equal(syn.timeline_slow_bw,
+                                             rep.timeline_slow_bw),
+            "synth: the card's synthesized run != its materialized replay")
+    print(f"synth check: prng card == cpu; card == cpu over {len(promos)} "
+          f"synthesized lanes, promotions={promos}; synthesized == "
+          f"materialized replay bit for bit (promotions {syn.promotions})",
+          flush=True)
+
+
 def serve_check(seed: int, T_: int = 48, batch: int = 2):
     """The serving loop on the card and on the CPU: reduced granite-8b in
     f32 (TF32 off), weights made from the seed on the CPU, the same q/k/v
@@ -1658,8 +1941,8 @@ def main():
     for nm, row in rows.items():   # launches: every path of the main path
         row["launches"] = sum(c[nm] for c in by_path.values())
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
-    for check in (whole_path_check, policy_check, serve_check, train_check,
-                  ssm_decode_check):
+    for check in (whole_path_check, policy_check, synth_check, serve_check,
+                  train_check, ssm_decode_check):
         t1 = time.time()
         check(args.seed)
         print(f"{check.__name__}: {time.time() - t1:.1f}s", flush=True)

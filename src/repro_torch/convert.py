@@ -4,7 +4,8 @@ Each function takes the JAX package's object with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, obj)``) and returns the
 port's tensor dataclass (or, for ``model_params``, its parameter dict):
 the simulator's policy specs, policy state and machines (ARMS and the
-eight baseline families), the model weights, the
+eight baseline families), its workload specs and workload state, the
+model weights, the
 serving layer's ``TieredPool`` and ``PagedKV``, and the optimizer's
 ``AdamWState``.  Fields are read by name, so nothing of the JAX package
 is imported here.  A per-lane object (the JAX package's layout outside
@@ -118,6 +119,30 @@ def machine(obj, device=None) -> TieredMachineSpec:
               for f in dataclasses.fields(TieredMachineSpec)
               if f.name != "name"}
     return TieredMachineSpec(**leaves, name=obj.name)
+
+
+def workload_spec(spec, device=None):
+    """A JAX ``WorkloadSpec`` (``[S]`` leaves, or ``[W, S]`` for a lane
+    stack) as the port's, its display label kept."""
+    from repro_torch.simulator import workload_spec as ws
+    device = resolve_device(device)
+    out = ws.WorkloadSpec(**{
+        f.name: torch.from_numpy(np.array(getattr(spec, f.name))).to(device)
+        for f in dataclasses.fields(ws.WorkloadSpec)})
+    if hasattr(spec, "_label"):
+        ws.with_label(out, spec._label)
+    return out
+
+
+def workload_state(state, device=None):
+    """A JAX ``WorkloadState``: i32 ranks as they are, the uint32
+    ``base_key`` words as int64 (the port's key layout)."""
+    from repro_torch.simulator.workload_spec import WorkloadState
+    device = resolve_device(device)
+    t = lambda x, dt: torch.from_numpy(np.asarray(x).astype(dt)).to(device)
+    return WorkloadState(rank=t(state.rank, np.int32),
+                         rank2=t(state.rank2, np.int32),
+                         base_key=t(state.base_key, np.int64))
 
 
 # ---------------------------------------------------------------- serving

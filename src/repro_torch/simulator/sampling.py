@@ -20,6 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.utils import prng
+from repro_torch.utils.device import resolve_device
+
 _POISSON_TERMS = 24      # exact inverse-CDF terms; P(N >= 24 | lam < 12) ~ 1e-3
 _NORMAL_SWITCH = 12.0    # above this rate use the normal approximation
 
@@ -127,3 +130,27 @@ def pebs_sample_from_uniform(u, true_counts, period, *,
 def uniform_field(T: int, n: int, seed: int = 0) -> np.ndarray:
     """Host-side CRN uniform noise field for a whole trace replay."""
     return np.random.default_rng(seed).random((T, n)).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# Device-resident CRN rows for the trace-synthesis path: each interval
+# draws ONE uniform row from a counter-based key (``fold_in`` by t, no
+# consumed key chain), shared by every sweep lane, so config comparisons
+# stay paired while per-lane storage stays O(n).  JAX's threefry
+# (utils/prng.py), so the rows are the JAX package's bits.
+# --------------------------------------------------------------------------
+
+def synth_uniform_row(key, t, n: int):
+    """[n] uniform row for interval ``t`` (shared across lanes); ``key`` an
+    int64 ``[2]`` key (``prng.PRNGKey``).  An integer tensor ``t`` gives
+    the rows of all its intervals at once, ``[len(t), n]``."""
+    return prng.uniform(prng.fold_in(key, t), (n,))
+
+
+def synth_noise_field(T: int, n: int, seed: int = 0,
+                      device=None) -> np.ndarray:
+    """Host [T, n] replica of the rows a synthesized run draws (tests and
+    checks only: it is the O(T*n) array the synthesis path avoids)."""
+    dev = resolve_device(device)
+    return synth_uniform_row(prng.PRNGKey(seed, dev),
+                             torch.arange(T, device=dev), n).cpu().numpy()

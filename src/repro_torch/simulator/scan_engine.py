@@ -31,24 +31,38 @@ Entry points:
   * ``sweep_policy_configs`` — one lane per config of one policy family,
     all lanes sharing one CRN field;
   * ``sweep_arms_configs``   — ARMS knob grid; the two mode-dependent
-    observation grids are computed once and shared by all lanes.
+    observation grids are computed once and shared by all lanes;
+  * ``sweep_seeds``          — one lane per PRNG seed (sampling-noise
+    study: each lane's noise from its own key, split every interval);
+  * ``simulate_workload`` / ``sweep_workloads`` / ``sweep_workload_configs``
+    — the trace-SYNTHESIS path: the loop carries ``WorkloadSpec`` state
+    (simulator/workload_spec.py) and synthesizes ``true = work * probs``
+    plus the oracle top-k mask (the ``topk_mask`` op on [W, n]) on the
+    device each interval; per-lane storage is O(n), nothing ``[T, n]``
+    exists on host or device.
 
 Sampling modes: ``"crn"`` (a [T, n] uniform field, transformed per
-interval with each lane's period) and ``"pre"`` (precomputed [T, P, n]
-observation grids).  Reductions: ``"stack"`` ([B, T] timelines) and
+interval with each lane's period), ``"pre"`` (precomputed [T, P, n]
+observation grids), ``"prng"`` (per-lane threefry keys split every
+interval, each lane's row drawn from its subkey) and ``"crn_prng"`` (one
+row an interval from ``fold_in(noise_key, t)``, shared by every lane:
+the synthesis default).  The keys and rows are JAX's bits
+(utils/prng.py).  Reductions: ``"stack"`` ([B, T] timelines) and
 ``"stream"`` (running sums, nothing [T]-shaped).
 
 The any-lane fire gate is a host branch on ``do.any()``: on intervals
 where no lane's policy is due, the policy pass and the migration executor
 are skipped (in JAX an all-``-1`` plan would execute nothing, so the
-outputs are the same).  Final [B] results are formed on the CPU.
+outputs are the same).  The workload event gate is decided on the host
+from the specs' integer leaves, so an interval still syncs once.  Final
+[B] results are formed on the CPU.
 
-Waiting for later slices, each raising ``NotImplementedError``: the
-``"prng"``/``"crn_prng"`` sampling modes (they need JAX's threefry in
-torch), the trace-synthesis path and ``mixed_observation`` (union
-fabric) specs.
+Waiting for a later slice, raising ``NotImplementedError``: the
+``mixed_observation`` (union fabric) specs.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -56,11 +70,13 @@ import torch
 from repro_torch.baselines.arms_policy import SWEEPABLE, ARMSSpec
 from repro_torch.core.state import ARMSConfig
 from repro_torch.kernels.interval_step import ops as interval_ops
-from repro_torch.simulator import machine_spec, machines, simjax
+from repro_torch.simulator import (machine_spec, machines, simjax,
+                                   workload_spec)
 from repro_torch.simulator.engine import SimResult, oracle_topk_masks
 from repro_torch.simulator.sampling import (_NORMAL_SWITCH,
                                             pebs_sample_from_uniform,
-                                            uniform_field)
+                                            synth_uniform_row, uniform_field)
+from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import (bwhere, lane_specs, stack_specs,
                                       take_lanes)
@@ -69,14 +85,46 @@ __all__ = [
     "SWEEPABLE", "simulate", "arms_sim", "sweep_policy_configs",
     "sweep_arms_configs", "sweep_seeds", "simulate_workload",
     "sweep_workloads", "sweep_workload_configs", "last_dispatch",
+    "count_dispatches", "DispatchCounter",
 ]
 
 #: Info about the most recent engine pass (lanes, sampling mode, T,
 #: lane_intervals).
 last_dispatch: dict = {}
 
-_PRNG_WAITS = ("PRNG sampling needs JAX's threefry ported to torch "
-               "(ROADMAP queue 1 item 7); pass sample_u for CRN sampling")
+
+class DispatchCounter:
+    """Live tally handed out by ``count_dispatches``: ``count`` passes so
+    far, ``records`` their ``_record_dispatch`` info dicts in order."""
+
+    def __init__(self):
+        self.count = 0
+        self.records: list = []
+
+    @property
+    def last(self) -> dict:
+        return self.records[-1] if self.records else {}
+
+
+#: counters open via ``count_dispatches`` (nested regions each see every
+#: pass issued inside them).
+_active_counters: list = []
+
+
+@contextlib.contextmanager
+def count_dispatches():
+    """Context-managed pass counter:
+
+        with scan_engine.count_dispatches() as ctr:
+            scan_engine.sweep_workloads(...)
+        assert ctr.count == 1 and ctr.last["lanes"] == W
+    """
+    ctr = DispatchCounter()
+    _active_counters.append(ctr)
+    try:
+        yield ctr
+    finally:
+        _active_counters.remove(ctr)
 
 
 def _need_normal(trace, min_period: float) -> bool:
@@ -119,28 +167,97 @@ def _precompute_observations(trace, u, periods: tuple, need_normal: bool):
     return obs
 
 
-def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
+class _TraceRows:
+    """True counts and oracle masks of a materialized trace, one [n] row
+    an interval, expanded to the B lanes."""
+
+    def __init__(self, trace, oracle, B: int):
+        self.trace, self.oracle, self.B = trace, oracle, B
+        self.T, self.n = trace.shape
+
+    def rows(self, t: int):
+        shape = (self.B, self.n)
+        return self.trace[t][None].expand(shape), \
+            self.oracle[t][None].expand(shape)
+
+
+class _SynthRows:
+    """Trace synthesis: the [W]-lane workload stack's rows ``true = work *
+    probs`` (``workload_spec.Synth``) and their top-k oracle masks (the
+    ``topk_mask`` op), each workload row feeding ``rep`` consecutive
+    lanes (lane ``w * rep + b``)."""
+
+    def __init__(self, wl, T: int, n: int, k: int, wl_key, with_boost: bool,
+                 rep: int):
+        self.syn = workload_spec.Synth(wl, n, wl_key, with_boost, T)
+        self.T, self.n, self.k, self.rep = T, n, k, rep
+
+    def rows(self, t: int):
+        true_w = self.syn.row(t)                               # [W, n]
+        orc_w = interval_ops.topk_mask(true_w, self.k)
+        if self.rep == 1:
+            return true_w, orc_w
+        return (true_w.repeat_interleave(self.rep, 0),
+                orc_w.repeat_interleave(self.rep, 0))
+
+
+#: elements of one chunk of PRNG noise rows drawn at once
+_NOISE_CHUNK = 1 << 22
+
+
+class _NoiseRows:
+    """PRNG noise rows, drawn a chunk of intervals at a time (the same
+    bits as one draw an interval, in fewer launches).  ``"crn_prng"``:
+    ``key [2]``, row t is ``synth_uniform_row(key, t)``, shared by every
+    lane, [1, n].  ``"prng"``: ``keys [B, 2]``, split every interval
+    (``prng.split_chain``), row t is each lane's subkey's draw, [B, n]."""
+
+    def __init__(self, key, n: int, T: int, per_lane: bool):
+        if per_lane:
+            subs = prng.split_chain(key, T)                  # [T, B, 2]
+            self.draw = lambda lo, hi: prng.uniform(subs[lo:hi], (n,))
+        else:
+            ts = torch.arange(T, device=key.device)
+            self.draw = lambda lo, hi: synth_uniform_row(
+                key, ts[lo:hi], n)[:, None]
+        self.chunk = max(1, _NOISE_CHUNK // (key.numel() // 2 * n))
+        self.lo, self.rows = 0, None
+
+    def row(self, t: int):
+        if self.rows is None or not self.lo <= t < self.lo + len(self.rows):
+            self.lo = t
+            self.rows = self.draw(t, t + self.chunk)
+        return self.rows[t - self.lo]
+
+
+def _simulate(spec, source, k: int, mach, caps, sample, sampling: str,
               need_normal: bool, reduce: str = "stack",
               tier_shim: bool = False):
-    """Batched replay on ``trace``'s device; returns a dict of [B] CPU
+    """Batched replay on ``caps``' device; returns a dict of [B] CPU
     results (+ [B, T] timelines under ``reduce="stack"``).
 
     ``spec`` is lane-batched, ``mach`` a TieredMachineSpec with [B, R]
-    leaves and ``caps`` its resolved i32 [B, R] capacities; ``trace`` f32
-    [T, n] and ``oracle`` bool [T, n] are shared by all lanes.  ``sample``
-    is the [T, n] uniform field (``"crn"``) or the [T, P, n] observation
-    grids (``"pre"``).  Tier-native specs, and binary ones under
-    ``tier_shim``, take the tier-targeted route (module docstring).
+    leaves and ``caps`` its resolved i32 [B, R] capacities.  ``source``
+    gives each interval's true counts and oracle masks, [B, n] each: a
+    materialized trace (``_TraceRows``) or the synthesis path
+    (``_SynthRows``).  ``sample`` is the [T, n] uniform field (``"crn"``),
+    the [T, P, n] observation grids (``"pre"``), the per-lane keys [B, 2]
+    (``"prng"``) or the shared noise key [2] (``"crn_prng"``).
+    Tier-native specs, and binary ones under ``tier_shim``, take the
+    tier-targeted route (module docstring).
     """
-    if reduce not in ("stack", "stream") or sampling not in ("crn", "pre"):
+    if reduce not in ("stack", "stream") or sampling not in (
+            "crn", "pre", "prng", "crn_prng"):
         raise ValueError(f"reduce={reduce!r} / sampling={sampling!r}")
-    T, n = trace.shape
+    T, n = source.T, source.n
     B = caps.shape[0]
-    dev = trace.device
+    dev = caps.device
     f32, i32 = torch.float32, torch.int32
     R = caps.shape[-1]
     cls = type(spec)
     tn = cls.tier_native or tier_shim
+    noise = (_NoiseRows(sample, n, T, sampling == "prng")
+             if sampling in ("prng", "crn_prng") else None)
 
     state = spec.init(n, k, mach)
     tier = torch.full((B, n), R - 1, dtype=i32, device=dev)  # all at bottom
@@ -163,16 +280,16 @@ def _simulate(spec, trace, oracle, k: int, mach, caps, sample, sampling: str,
     nano = torch.full((), 1e-9, dtype=f32, device=dev)
 
     for t in range(T):
-        true_b = trace[t][None].expand(B, n)
-        orc_b = oracle[t][None].expand(B, n)
+        true_b, orc_b = source.rows(t)
         if cls.wants_true_counts:
             observed = true_b
         elif sampling == "pre":
             observed = sample[t].index_select(0, spec.obs_index(state).long())
         else:
+            u = sample[t][None] if noise is None else noise.row(t)
             period = spec.sampling_period(state)[:, None]
             observed = pebs_sample_from_uniform(
-                sample[t][None], true_b, period, need_normal=need_normal)
+                u, true_b, period, need_normal=need_normal)
         state = spec.observe(state, observed)
         do = spec.fires(state)                                   # [B]
         fire = bool(do.any())   # the interval's one host sync
@@ -288,53 +405,89 @@ def _record_dispatch(**info):
     info["lane_intervals"] = int(info["lanes"]) * int(info["T"])
     last_dispatch.clear()
     last_dispatch.update(info)
+    for ctr in _active_counters:
+        ctr.count += 1
+        ctr.records.append(dict(info))
 
 
 def _inputs(trace, k: int, sample_u, device):
-    """Host trace -> (trace f32, oracle bool, uniform field f32) on the
-    device, plus the host trace."""
+    """Host trace -> (trace f32, oracle bool, uniform field f32 or None) on
+    the device, plus the host trace."""
     trace = np.asarray(trace, np.float32)
     T, n = trace.shape
     if not 0 < k <= n:
         raise ValueError(f"k={k} must lie in 1..{n}")
-    sample_u = np.asarray(sample_u, np.float32)
-    if sample_u.shape != (T, n):
-        raise ValueError(f"sample_u {sample_u.shape} != trace {(T, n)}")
     oracle = oracle_topk_masks(trace, k)
     to = lambda a: torch.from_numpy(np.require(a, requirements="CW")).to(
         device)
-    return to(trace), to(oracle), to(sample_u), trace
+    u = None
+    if sample_u is not None:
+        sample_u = np.asarray(sample_u, np.float32)
+        if sample_u.shape != (T, n):
+            raise ValueError(f"sample_u {sample_u.shape} != trace {(T, n)}")
+        u = to(sample_u)
+    return to(trace), to(oracle), u, trace
+
+
+def _seed_keys(seeds, device):
+    """[B, 2] threefry keys, ``jax.random.PRNGKey(s)`` for each seed."""
+    return torch.stack([prng.PRNGKey(int(s), device) for s in seeds])
 
 
 # ------------------------------------------------------------- public API
 def simulate(spec, trace, machine, k: int, seed: int = 0, sample_u=None,
              name: str | None = None, tier_shim: bool = False,
              device=None) -> SimResult:
-    """Replay of ``trace`` [T, n] under any policy spec with the CRN field
-    ``sample_u`` [T, n] (``sampling.uniform_field``); ``machine`` is a
-    registry name / MachineSpec / TieredMachineSpec.  ``tier_shim=True``
-    sends a binary spec through the tier-targeted executor via the
-    protocol's shim (bit for bit the hop-chain route).  ``seed`` only
-    selects the PRNG sampling path, which waits."""
-    if sample_u is None:
-        raise NotImplementedError(_PRNG_WAITS)
+    """Replay of ``trace`` [T, n] under any policy spec; ``machine`` is a
+    registry name / MachineSpec / TieredMachineSpec.  ``sample_u`` [T, n]
+    (``sampling.uniform_field``) selects CRN sampling; without it the PEBS
+    noise is drawn from ``PRNGKey(seed)``, split every interval (JAX's
+    default, bit for bit).  ``tier_shim=True`` sends a binary spec through
+    the tier-targeted executor via the protocol's shim (bit for bit the
+    hop-chain route)."""
     _check_spec(spec)
     dev = resolve_device(device)
     trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
     T, n = trace.shape
     mach, caps = _mach_lanes(machine, 1, n, k, dev)
-    out = _simulate(lane_specs(spec, 1).to(dev), trace_d, oracle, k, mach,
-                    caps, u, "crn",
+    sampling = "crn" if u is not None else "prng"
+    sample = u if u is not None else _seed_keys([seed], dev)
+    out = _simulate(lane_specs(spec, 1).to(dev),
+                    _TraceRows(trace_d, oracle, 1), k, mach, caps, sample,
+                    sampling,
                     _need_normal(trace, spec.min_sampling_period()),
                     tier_shim=tier_shim)
-    _record_dispatch(lanes=1, sampling="crn", policy=spec.name, T=T,
+    _record_dispatch(lanes=1, sampling=sampling, policy=spec.name, T=T,
                      reduce="stack", device=str(dev))
     return _to_result(out, 0, name or spec.name)
 
 
-def sweep_seeds(trace, machine, k: int, seeds, cfg=None, spec=None,
-                device=None):
-    raise NotImplementedError(_PRNG_WAITS)
+def sweep_seeds(trace, machine, k: int, seeds, cfg: ARMSConfig | None = None,
+                spec=None, device=None) -> list[SimResult]:
+    """One lane per PRNG seed (``"prng"`` sampling): every seed's replay
+    runs in lockstep in the lane axis.  Defaults to ARMS (``cfg``); pass
+    any ``spec`` for a baseline."""
+    if spec is None:
+        spec = ARMSSpec.make(base_cfg=cfg)
+    elif cfg is not None:
+        raise ValueError("pass either cfg (ARMS) or spec, not both")
+    seeds = list(seeds)
+    if not seeds:
+        raise ValueError("sweep_seeds needs at least one seed")
+    _check_spec(spec)
+    dev = resolve_device(device)
+    trace_d, oracle, _, trace = _inputs(trace, k, None, dev)
+    T, n = trace.shape
+    B = len(seeds)
+    mach, caps = _mach_lanes(machine, B, n, k, dev)
+    out = _simulate(lane_specs(spec, B).to(dev),
+                    _TraceRows(trace_d, oracle, B), k, mach, caps,
+                    _seed_keys(seeds, dev), "prng",
+                    _need_normal(trace, spec.min_sampling_period()))
+    _record_dispatch(lanes=B, sampling="prng", policy=spec.name, T=T,
+                     reduce="stack", device=str(dev))
+    return [_to_result(out, i, f"{spec.name}[seed={s}]")
+            for i, s in enumerate(seeds)]
 
 
 def sweep_policy_configs(spec_family, trace, machine, k: int, configs,
@@ -357,22 +510,27 @@ def sweep_policy_configs(spec_family, trace, machine, k: int, configs,
         sample_u = uniform_field(T, n, seed=sim_seed)
     trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
     min_period = min(s.min_sampling_period() for s in specs)
-    mach, caps = _mach_lanes(machine, len(configs), n, k, dev)
-    out = _simulate(stack_specs(specs).to(dev), trace_d, oracle, k, mach,
-                    caps, u, "crn", _need_normal(trace, min_period))
-    _record_dispatch(lanes=len(configs), sampling="crn",
-                     policy=specs[0].name, T=T, reduce="stack",
-                     device=str(dev))
-    labels = [",".join(f"{nm}={v:.6g}" for nm, v in sorted(cfg.items()))
-              for cfg in configs]
+    B = len(configs)
+    mach, caps = _mach_lanes(machine, B, n, k, dev)
+    out = _simulate(stack_specs(specs).to(dev),
+                    _TraceRows(trace_d, oracle, B), k, mach, caps, u, "crn",
+                    _need_normal(trace, min_period))
+    _record_dispatch(lanes=B, sampling="crn", policy=specs[0].name, T=T,
+                     reduce="stack", device=str(dev))
     return [_to_result(out, i, f"{specs[0].name}[{lbl}]")
-            for i, lbl in enumerate(labels)]
+            for i, lbl in enumerate(_cfg_labels(configs))]
+
+
+def _cfg_labels(configs) -> list[str]:
+    return [",".join(f"{nm}={v:.6g}" for nm, v in sorted(cfg.items()))
+            for cfg in configs]
 
 
 def arms_sim(trace, machine, k: int, cfg: ARMSConfig | None = None,
              seed: int = 0, sample_u=None, name: str = "arms",
              device=None) -> SimResult:
-    """ARMS replay of ``trace`` with the CRN field ``sample_u``."""
+    """ARMS replay of ``trace``: CRN sampling with ``sample_u``, else PRNG
+    sampling from ``PRNGKey(seed)``."""
     return simulate(ARMSSpec.make(base_cfg=cfg), trace, machine, k,
                     seed=seed, sample_u=sample_u, name=name, device=device)
 
@@ -411,8 +569,9 @@ def sweep_arms_configs(trace, machine, k: int, overrides: dict,
                                    need_normal)
     del u
     mach, caps = _mach_lanes(machine, B, n, k, dev)
-    out = _simulate(stack_specs(specs).to(dev), trace_d, oracle, k, mach,
-                    caps, obs, "pre", need_normal, reduce=reduce)
+    out = _simulate(stack_specs(specs).to(dev),
+                    _TraceRows(trace_d, oracle, B), k, mach, caps, obs, "pre",
+                    need_normal, reduce=reduce)
     _record_dispatch(lanes=B, sampling="pre", policy="arms", T=T,
                      reduce=reduce, device=str(dev))
     labels = [",".join(f"{nm}={float(overrides[nm][b]):.4g}" for nm in names)
@@ -422,17 +581,131 @@ def sweep_arms_configs(trace, machine, k: int, overrides: dict,
 
 
 # --------------------------------------------- trace synthesis (workloads)
-_SYNTH_WAITS = ("the trace-synthesis path (WorkloadSpec state in the scan) "
-                "is not ported yet; replay a materialized trace instead")
+def _stack_workloads(wl_specs, device):
+    """Stack WorkloadSpecs into one [W]-lane spec (component-count padded)."""
+    S = max(sp.n_components for sp in wl_specs)
+    return stack_specs([workload_spec.pad_components(sp, S)
+                        for sp in wl_specs]).to(device)
 
 
-def simulate_workload(*args, **kwargs):
-    raise NotImplementedError(_SYNTH_WAITS)
+def _synth_need_normal(wl_specs, min_period: float) -> bool:
+    """Host bound for synthesis: can any page's sampling rate reach the
+    normal-approx regime?  From the specs' work bound (probs <= 1), so it
+    may be conservatively True; the sampler's selected values are the same
+    either way."""
+    return max(sp.max_rate() for sp in wl_specs) / float(min_period) \
+        >= _NORMAL_SWITCH
 
 
-def sweep_workloads(*args, **kwargs):
-    raise NotImplementedError(_SYNTH_WAITS)
+def _synth(spec, workloads, k: int, T: int, n: int, machine, rep: int,
+           sim_seed: int, wl_seed: int, sample_u, min_period: float,
+           device):
+    """One synthesized pass: ``spec`` lane-batched over ``len(workloads) *
+    rep`` lanes, workload ``w`` feeding lanes ``w * rep .. w * rep + rep
+    - 1``.  Returns (out, sampling)."""
+    if not 0 < k <= n:
+        raise ValueError(f"k={k} must lie in 1..{n}")
+    dev = resolve_device(device)
+    B = len(workloads) * rep
+    if sample_u is not None:
+        sample_u = np.asarray(sample_u, np.float32)
+        if sample_u.shape != (T, n):
+            raise ValueError(f"sample_u {sample_u.shape} != {(T, n)}")
+        sample, sampling = torch.from_numpy(
+            np.require(sample_u, requirements="CW")).to(dev), "crn"
+    else:
+        sample, sampling = prng.PRNGKey(sim_seed, dev), "crn_prng"
+    source = _SynthRows(_stack_workloads(workloads, dev), T, n, k,
+                        prng.PRNGKey(wl_seed, dev),
+                        any(w.has_boost() for w in workloads), rep)
+    mach, caps = _mach_lanes(machine, B, n, k, dev)
+    out = _simulate(spec.to(dev), source, k, mach, caps, sample, sampling,
+                    _synth_need_normal(workloads, min_period))
+    return out, sampling
 
 
-def sweep_workload_configs(*args, **kwargs):
-    raise NotImplementedError(_SYNTH_WAITS)
+def simulate_workload(spec, workload, machine, k: int, T: int, n: int,
+                      sim_seed: int = 0, wl_seed: int = 0, sample_u=None,
+                      name: str | None = None, device=None) -> SimResult:
+    """Replay of a ``WorkloadSpec`` synthesized on the device under any
+    policy: ``true = work * probs`` and the oracle mask each interval,
+    nothing [T, n] anywhere.  Under the same seeds the run is bit for bit
+    the replay of ``workload.materialize(T, n, wl_seed)`` with the
+    ``sampling.synth_noise_field(T, n, sim_seed)`` CRN field (or with
+    ``sample_u`` if given)."""
+    _check_spec(spec)
+    out, sampling = _synth(lane_specs(spec, 1), [workload], k, T, n,
+                           machine, 1, sim_seed, wl_seed, sample_u,
+                           spec.min_sampling_period(), device)
+    _record_dispatch(lanes=1, sampling=sampling, policy=spec.name,
+                     synth=True, workloads=1, configs=1, T=T,
+                     reduce="stack", device=str(resolve_device(device)))
+    label = name or f"{spec.name}@{workload_spec.label_of(workload)}"
+    return _to_result(out, 0, label)
+
+
+def _wl_names(workloads, names):
+    return list(names) if names is not None else [
+        workload_spec.label_of(w, f"wl{i}") for i, w in enumerate(workloads)]
+
+
+def sweep_workloads(workloads, machine, k: int, T: int, n: int,
+                    cfg: ARMSConfig | None = None, spec=None,
+                    sim_seed: int = 0, wl_seed: int = 0, names=None,
+                    device=None) -> list[SimResult]:
+    """One policy across W workload lanes in one pass.  Every lane
+    synthesizes its own trace on the device and all lanes share the
+    counter-based CRN rows, so workload comparisons are paired.  Defaults
+    to ARMS (``cfg``); pass any policy ``spec`` for a baseline."""
+    if spec is None:
+        spec = ARMSSpec.make(base_cfg=cfg)
+    elif cfg is not None:
+        raise ValueError("pass either cfg (ARMS) or spec, not both")
+    workloads = list(workloads)
+    if not workloads:
+        raise ValueError("sweep_workloads needs at least one workload")
+    _check_spec(spec)
+    W = len(workloads)
+    names = _wl_names(workloads, names)
+    out, _ = _synth(lane_specs(spec, W), workloads, k, T, n, machine, 1,
+                    sim_seed, wl_seed, None, spec.min_sampling_period(),
+                    device)
+    _record_dispatch(lanes=W, sampling="crn_prng", policy=spec.name,
+                     synth=True, workloads=W, configs=1, T=T,
+                     reduce="stack", device=str(resolve_device(device)))
+    return [_to_result(out, i, f"{spec.name}@{nm}")
+            for i, nm in enumerate(names)]
+
+
+def sweep_workload_configs(spec_family, configs, workloads, machine, k: int,
+                           T: int, n: int, sim_seed: int = 0,
+                           wl_seed: int = 0, sample_u=None, names=None,
+                           device=None) -> list[list[SimResult]]:
+    """W workloads x B configs as one pass of W*B lanes: lane ``w * B + b``
+    scores config ``b`` on workload ``w``; each workload is synthesized
+    once an interval and feeds its B config lanes.  All lanes share the
+    CRN rows (counter-based by default, or ``sample_u``).  Returns
+    ``out[w][b]``."""
+    configs = list(configs)
+    workloads = list(workloads)
+    if not configs or not workloads:
+        raise ValueError("sweep_workload_configs needs >=1 config and "
+                         ">=1 workload")
+    W, B = len(workloads), len(configs)
+    names = _wl_names(workloads, names)
+    pol_specs = [spec_family(**cfg) for cfg in configs]
+    _check_spec(pol_specs[0])
+    lane_spec = stack_specs([pol_specs[b] for _ in range(W)
+                             for b in range(B)])
+    out, sampling = _synth(lane_spec, workloads, k, T, n, machine, B,
+                           sim_seed, wl_seed, sample_u,
+                           min(s.min_sampling_period() for s in pol_specs),
+                           device)
+    _record_dispatch(lanes=W * B, sampling=sampling,
+                     policy=pol_specs[0].name, synth=True, workloads=W,
+                     configs=B, T=T, reduce="stack",
+                     device=str(resolve_device(device)))
+    labels = _cfg_labels(configs)
+    return [[_to_result(out, w * B + b,
+                        f"{pol_specs[b].name}@{names[w]}[{labels[b]}]")
+             for b in range(B)] for w in range(W)]

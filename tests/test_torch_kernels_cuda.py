@@ -963,3 +963,60 @@ def test_mamba_scan_rejects_bad_inputs(card):
         skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy.bfloat16(), chunk=8)
     with pytest.raises(ValueError):          # dh_final of another shape
         skernel.mamba_scan_bwd(x, dt, A, Bm, Cm, dy, dy, chunk=8)
+
+
+# ------------------------------------------ threefry and trace synthesis
+# Plain torch on both devices (no kernel of their own): the card must give
+# the CPU's bits, so a synthesized replay on the card is the CPU's.
+from repro_torch.simulator import scan_engine as pscan  # noqa: E402
+from repro_torch.simulator import scenarios as pscen  # noqa: E402
+from repro_torch.simulator import workload_spec as pws  # noqa: E402
+from repro_torch.baselines.arms_policy import ARMSSpec  # noqa: E402
+from repro_torch.utils import prng  # noqa: E402
+
+PRNG_DRAWS = {
+    "split": lambda k, n: prng.split(k, 3),
+    "fold_in": lambda k, n: prng.fold_in(k, torch.arange(3)),
+    "bits": lambda k, n: prng.random_bits(k, (n,)),
+    "uniform": lambda k, n: prng.uniform(k, (n,)),
+    "uniform_range": lambda k, n: prng.uniform(k, (n,), -2.0, 5.0),
+    "permutation": lambda k, n: prng.permutation(k, n),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", sorted(PRNG_DRAWS))
+@pytest.mark.parametrize("n", [1, 5, 1626, 4096, 65536])
+def test_prng_card_equals_cpu(card, draw, n):
+    keys = torch.stack([prng.PRNGKey(s) for s in (0, 7, 12345)])
+    fn = PRNG_DRAWS[draw]
+    assert torch.equal(fn(keys.to(card), n).cpu(), fn(keys, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 65536])
+def test_synthesized_rows_card_equal_cpu(card, n):
+    specs = [pws.named(nm, T=48) for nm in pws.NAMED_WORKLOADS] \
+        + pscen.suite(n, n // 8)
+    for s in specs:
+        cpu = s.materialize(48, n, 3, device="cpu")
+        gpu = s.materialize(48, n, 3, device=card)
+        np.testing.assert_array_equal(cpu.view(np.int32), gpu.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_synthesized_sweep_card_equals_cpu(card):
+    wls = [pws.named(nm, T=96) for nm in ("gups", "silo-tpcc", "gapbs-bc",
+                                          "liblinear")]
+    configs = [dict(alpha_s=0.5), dict(alpha_s=0.8)]
+    fam = lambda **kw: ARMSSpec.make(kw)
+    cpu = pscan.sweep_workload_configs(fam, configs, wls, "pmem-large", 512,
+                                       96, 4096, sim_seed=1, device="cpu")
+    gpu = pscan.sweep_workload_configs(fam, configs, wls, "pmem-large", 512,
+                                       96, 4096, sim_seed=1, device=card)
+    for rc, rg in zip(cpu, gpu):
+        for a, b in zip(rc, rg):
+            assert (a.promotions, a.demotions, a.wasteful) == \
+                (b.promotions, b.demotions, b.wasteful)
+            np.testing.assert_allclose(a.exec_time_s, b.exec_time_s,
+                                       rtol=1e-4)

@@ -111,12 +111,6 @@ def test_stream_matches_stack():
 
 def test_waiting_paths_raise():
     trace = _trace("gups")
-    with pytest.raises(NotImplementedError):
-        pscan.arms_sim(trace, "pmem-large", K, device="cpu")   # PRNG path
-    with pytest.raises(NotImplementedError):
-        pscan.simulate_workload()
-    with pytest.raises(NotImplementedError):
-        pscan.sweep_seeds(trace, "pmem-large", K, [0, 1])
 
     class Union(PolicySpec):   # a union-fabric spec mixing observation kinds
         name = "union"
