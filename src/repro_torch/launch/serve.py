@@ -14,7 +14,7 @@ Weights are random, drawn from a ``torch.Generator`` on the device seeded
 by ``--seed``; the tiered layer's q/k/v telemetry streams come from one
 CPU generator seeded by ``--seed``, so a card run and a CPU run see the
 same streams.  ``--policy`` takes ``arms`` only and ``--capture`` is not
-ported yet (ROADMAP queue 1 items 9 and 10).
+ported yet (the rest of the serving stack, ROADMAP queue 1).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -139,8 +139,8 @@ def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
     ``device`` (``None``: the CUDA card) with layer 0's KV cache tiered."""
     if capture:
         raise NotImplementedError(
-            "--capture needs simulator/traces.py, not ported yet (ROADMAP "
-            "queue 1 item 10)")
+            "--capture is not ported yet (the rest of the serving stack, "
+            "ROADMAP queue 1)")
     device = resolve_device(device)
     t_init = time.time()
     cfg, params, pk_cfg, kv, cache, draw = setup(
@@ -200,7 +200,8 @@ def main():
     ap.add_argument("--sync-telemetry", action="store_true",
                     help="per-token host-sync telemetry (slow)")
     ap.add_argument("--capture", default=None, metavar="PATH",
-                    help="not ported yet (ROADMAP queue 1 item 10)")
+                    help="not ported yet (the rest of the serving stack, "
+                    "ROADMAP queue 1)")
     args = ap.parse_args()
     serve(args.arch, args.tokens, args.batch, full=args.full,
           policy=args.policy, machine=args.machine, seed=args.seed,

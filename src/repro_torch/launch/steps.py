@@ -7,7 +7,8 @@ updates them in place.  With ``grad_accum > 1`` the batch's leading axis
 is cut into that many micro-batches (a Python loop where JAX scans) and
 their gradients are summed in f32, bounding live activation memory.  The
 activation-sharding constraint and the mesh arguments belong to the
-launch layer, which is not ported (ROADMAP queue 1 item 12).
+launch layer, which is not ported (the JAX-specific launch layer,
+ROADMAP queue 1).
 """
 from __future__ import annotations
 

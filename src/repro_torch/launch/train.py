@@ -53,7 +53,7 @@ def setup(arch: str, n_steps: int, full: bool = False, seed: int = 0,
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet (ROADMAP queue 1 item 12)")
+            f"yet (the rest of the model families, ROADMAP queue 1)")
     opt_cfg = adamw.AdamWConfig(total_steps=max(n_steps, 2),
                                 warmup_steps=max(n_steps // 10, 1))
     gen = torch.Generator(device=device).manual_seed(seed)

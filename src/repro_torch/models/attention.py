@@ -11,7 +11,8 @@ compute the same function.  The decode cache is the JAX package's stacked
 KV-major ``[L, B, KV, S, dh]`` layout, written in place at
 ``(layer, :, :, pos)``; scores and softmax run in f32 and the
 probabilities are cast to V's dtype before the second product.  MLA and
-cross attention wait for ROADMAP queue 1 item 12.
+cross attention wait for the rest of the model families (ROADMAP queue
+1).
 """
 from __future__ import annotations
 

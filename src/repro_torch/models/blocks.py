@@ -3,7 +3,8 @@
 The port of ``repro/models/blocks.py``'s ``dense_block_init``,
 ``dense_block_full`` (train, prefill), ``dense_block_decode_flat`` and
 ``mamba_block_init``/``mamba_block_full``/``mamba_block_decode``; the
-other block families (MoE, enc-dec) wait for ROADMAP queue 1 item 12.
+other block families (MoE, enc-dec) wait for the rest of the model
+families (ROADMAP queue 1).
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ zero ``[L, ...]`` gradient per layer.  ``remat=True`` wraps each layer in
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
 ``jax.checkpoint``.  A family table like the JAX package's ``_FAMILY``
 dispatches; the other families (moe, hybrid, encdec, vlm) raise
-``NotImplementedError`` until ROADMAP queue 1 item 12 ports them.
+``NotImplementedError`` until the rest of the model families (ROADMAP
+queue 1) ports them.
 """
 from __future__ import annotations
 
@@ -160,8 +161,8 @@ def _family_fns(cfg):
     if fns is None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1 item 12); the port runs the dense and ssm "
-            f"families")
+            f"(the rest of the model families, ROADMAP queue 1); the port "
+            f"runs the dense and ssm families")
     return fns
 
 

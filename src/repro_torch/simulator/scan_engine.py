@@ -57,8 +57,13 @@ outputs are the same).  The workload event gate is decided on the host
 from the specs' integer leaves, so an interval still syncs once.  Final
 [B] results are formed on the CPU.
 
-Waiting for a later slice, raising ``NotImplementedError``: the
-``mixed_observation`` (union fabric) specs.
+``experiment.sweep`` (through ``fabric.sim_trace``/``sim_synth``)
+drives ``_simulate`` with ``_TraceRows``/``_SynthRows`` and records its
+passes with ``_record_dispatch``; those underscore helpers are shared
+with exactly those two modules.
+
+Waiting for the union fabric and lane sharding (ROADMAP queue 1),
+raising ``NotImplementedError``: the ``mixed_observation`` specs.
 """
 from __future__ import annotations
 
@@ -135,7 +140,8 @@ def _need_normal(trace, min_period: float) -> bool:
 def _check_spec(spec):
     if type(spec).mixed_observation:
         raise NotImplementedError(
-            "mixed_observation (union fabric) specs are not ported yet")
+            "mixed_observation specs wait for the union fabric and lane "
+            "sharding (ROADMAP queue 1, not yet ported)")
 
 
 def _mach_lanes(machine, B: int, n: int, k: int, device):

@@ -20,8 +20,8 @@ The policy's cadence is fixed (``ARMSServeSpec.fires_at``), so the pool
 counts observed intervals on the host (``t``) and branches there without
 a device sync; everything else, telemetry included, stays on the device
 until ``telemetry`` reads it once.  Only ``"arms"`` serves here: the other
-policy families wait for ROADMAP queue 1 item 9, and the tier-native
-route with them.
+policy families wait for the rest of the serving stack (ROADMAP queue
+1), and the tier-native route with them.
 """
 from __future__ import annotations
 
@@ -51,12 +51,14 @@ def serving_policy(policy, arms_cfg: ARMSConfig | None = None,
         if not isinstance(policy, ARMSServeSpec):
             raise NotImplementedError(
                 f"{type(policy).__name__}: only ARMSServeSpec serves in "
-                f"the port yet (ROADMAP queue 1 item 9)")
+                f"the port yet (the rest of the serving stack, ROADMAP "
+                f"queue 1)")
         return policy
     if str(policy).lower() != "arms":
         raise NotImplementedError(
             f"policy {policy!r}: only 'arms' serves in the port yet; the "
-            f"other families wait for ROADMAP queue 1 item 9")
+            f"other families wait for the rest of the serving stack (ROADMAP "
+            f"queue 1)")
     return ARMSServeSpec.make_serving(arms_cfg or ARMSConfig(), pool_every)
 
 

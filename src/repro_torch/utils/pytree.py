@@ -5,6 +5,10 @@
 identity data that every helper below passes through untouched.  Every
 instance gets ``replace(**kw)`` and ``to(device)``.
 
+``treedef`` keys a tree's structure as ``jax.tree_util.tree_structure``
+does (class and meta values), so ``experiment.sweep`` groups policies
+as the JAX package does.
+
 Lane helpers: sweep lanes are an explicit leading ``[B, ...]`` axis on
 every leaf (the JAX package puts them under ``vmap``).  ``lane_specs``
 broadcasts one spec to B identical lanes, ``stack_specs`` stacks
@@ -57,6 +61,23 @@ def tree_map(fn, tree, *rest):
             nm: tree_map(fn, getattr(tree, nm), *[getattr(r, nm) for r in rest])
             for nm in _data_fields(tree)})
     raise TypeError(f"not a tensor dataclass leaf: {type(tree).__name__}")
+
+
+def treedef(tree):
+    """Hashable structure key of a tensor dataclass: equal for two trees
+    exactly when ``jax.tree_util.tree_structure`` is equal for their JAX
+    counterparts.  It holds the class, every meta field's value (e.g.
+    ``migration_limit``, which sets plan widths) and, recursively, the
+    same of each nested tensor dataclass; tensors are leaves, whatever
+    their shape."""
+    if isinstance(tree, torch.Tensor):
+        return "*"
+    cls = type(tree)
+    if dataclasses.is_dataclass(tree) and hasattr(cls, "_meta_fields"):
+        return (cls, tuple((nm, getattr(tree, nm)) for nm in cls._meta_fields),
+                tuple((nm, treedef(getattr(tree, nm)))
+                      for nm in _data_fields(tree)))
+    raise TypeError(f"not a tensor dataclass leaf: {cls.__name__}")
 
 
 def lane_specs(spec, B: int):

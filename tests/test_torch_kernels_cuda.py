@@ -1020,3 +1020,63 @@ def test_synthesized_sweep_card_equals_cpu(card):
                 (b.promotions, b.demotions, b.wasteful)
             np.testing.assert_allclose(a.exec_time_s, b.exec_time_s,
                                        rtol=1e-4)
+
+
+# --------------------------------------- the tuning study's lane counts
+# The tuning study launches the interval-step kernels at the nine named
+# workloads x 24, 20 and 16 configs (216, 180 and 144 lanes) of 65,536
+# pages, where each chooser picks another cluster size than at the
+# replay's 16 lanes: the kernels at the chooser's own pick, held to the
+# plain versions.
+STUDY_LANES = [144, 180, 216]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", STUDY_LANES)
+def test_interval_step_kernels_at_the_study_lanes(card, B):
+    n, k = 65536, 8192
+    x = _topk_case(B, n, k, "ties")
+    got = _launches("topk_mask", lambda: kernel.topk_mask(_t(x).to(card), k))
+    assert torch.equal(got.cpu(), ref.topk_mask_ref(_t(x), k))
+    got, want = _account_on_card(card, "pmem-large", B, n, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for P, D in ((12, 12), (12, k)):         # HeMem/Memtis's and TPP's
+        got, want = _migrate_on_card(card, migrate_case(B, n, 2, P, D, B))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    s, l, c, params = _ewma_case(B, n, B)
+    got = _launches("ewma_update", lambda: kernel.ewma_update(
+        _t(s).to(card), _t(l).to(card), _t(c).to(card), _t(params).to(card)))
+    want = ref.ewma_score_update_ref(_t(s), _t(l), _t(c), _t(params))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_sweep_and_grid_search_card_equal_cpu(card):
+    """A synthesized 2-seed sweep over a mixed 2/3-tier panel, and a grid
+    search over three workloads: card == CPU (counts exact, exec_time
+    within 1e-4 relative, rankings equal)."""
+    from repro_torch.simulator import experiment, search
+    kw = dict(workloads=["gups", "silo-tpcc"],
+              machines=["pmem-large", "dram-cxl-pmem"], seeds=[0, 1], k=512,
+              T=96, n=4096, dispatch="grouped")
+    cpu, gpu = (experiment.sweep(["hemem", "jenga"], device=d, **kw)
+                for d in ("cpu", card))
+    assert cpu.axes == gpu.axes
+    for (_, a), (_, b) in zip(cpu.items(), gpu.items()):
+        assert (a.promotions, a.demotions, a.wasteful) == \
+            (b.promotions, b.demotions, b.wasteful)
+        np.testing.assert_allclose(a.exec_time_s, b.exec_time_s, rtol=1e-4)
+    kw = dict(workloads=["gups", "silo-tpcc", "btree"], T=96, n=4096,
+              k=512, budget=8)
+    cpu, gpu = (search.run("hemem", "grid", device=d, **kw)
+                for d in ("cpu", card))
+    for g in cpu:
+        assert [c for c, _ in cpu[g].rows] == [c for c, _ in gpu[g].rows]
+        for (_, a), (_, b) in zip(cpu[g].rows, gpu[g].rows):
+            assert (a.promotions, a.demotions, a.wasteful) == \
+                (b.promotions, b.demotions, b.wasteful)
+            np.testing.assert_allclose(a.exec_time_s, b.exec_time_s,
+                                       rtol=1e-4)

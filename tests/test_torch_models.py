@@ -39,7 +39,8 @@ def test_configs_match_jax(name):
     if cfg.family in ("dense", "ssm"):
         assert cfg.n_params == jcfg.n_params
     else:
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        with pytest.raises(NotImplementedError,
+                           match="the rest of the model families"):
             M.init_params(registry.reduced(cfg), device="cpu")
 
 

@@ -158,7 +158,8 @@ def test_apply_padded_migrations_matches_jax(n, k, P, D):
 
 def test_only_arms_serves():
     for name in ("memtis", "hybridtier"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        with pytest.raises(NotImplementedError,
+                           match="the rest of the serving stack"):
             TP.init_pool(name, 8, 3, device="cpu")
     spec = TP.serving_policy("ARMS", pool_every=4)
     assert spec.pool_every == 4 and spec.fires_at(8) and not spec.fires_at(9)

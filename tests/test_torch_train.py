@@ -339,7 +339,8 @@ def test_entry_points_default_to_the_card_and_reject_other_families():
         with pytest.raises(RuntimeError, match="CUDA"):
             T.train("stablelm-1.6b", 1, 2, 8)
     for arch in ("zamba2-1.2b", "whisper-small", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        with pytest.raises(NotImplementedError,
+                           match="the rest of the model families"):
             T.train(arch, 1, 2, 8, device="cpu")
 
 
