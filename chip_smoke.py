@@ -41,15 +41,17 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      to the plain version in f32; and the interval-step kernels at every
      cluster size their choosers pick for 1 to 216 lanes of 65,536 pages
      (the tuning study's widest pass; lines of their own, not timed),
-     and timed at the study's 216 lanes (TPP's plans at its 144);
-  3. main path, twenty-four paths, each with every launch count set to 0 just
+     and timed at the study's 216 lanes (TPP's plans at its 144), and one
+     lane of the accounting kernel embedded in batches of 1, 9, 21, 168
+     and 216 lanes, bit for bit the same (2 and 3 tiers);
+  3. main path, twenty-five paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
      ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
-     k = 8,192, T = 4,096 with the streaming reduction; ``arms_sim`` on
+     k = 8,192, T = 2,048 with the streaming reduction; ``arms_sim`` on
      the 3-tier ``dram-cxl-pmem`` at T = 1,024, on a GUPS-like trace made
      with numpy from ``--seed``; then the other policy families at the
-     same width on the first T = 512 intervals of that trace and CRN
+     same width on the first T = 256 intervals of that trace and CRN
      field: ``sweep_policy_configs`` over 16-lane knob grids of HeMem,
      Memtis and TPP on ``pmem-large`` (binary route: ``tier_migrate`` and
      ``interval_account``) and of Jenga and TierBPF (16 lanes) and
@@ -77,7 +79,15 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      time over all-slow's and untuned ARMS over the best tuned; an ASHA
      search of HeMem's 24 over the nine, ARMS's CE search on the
      ``"pre"`` path and a HeMem transfer matrix over ``pmem-large`` and
-     ``dram-cxl-pmem``, both on the trace's first 512 intervals; every
+     ``dram-cxl-pmem``, both on the trace's first 256 intervals; then the
+     paper's robustness leaderboard: ONE ``experiment.sweep`` of oracle,
+     ARMS, HeMem, Memtis, TPP, HybridTier, Jenga and TierBPF over the
+     seven scenarios of ``scenarios.suite`` on ``pmem-large``,
+     ``cxl-1hop`` and ``dram-cxl-pmem`` at the same width, T = 1,024
+     (168 lanes), which must run as one union pass of the eight
+     families, with its rate, peak device memory, the busy share of its
+     first 128 intervals and each policy's worst and mean slowdown over
+     the oracle and its thrash; every
      cluster configuration launched so far at 65,536 pages must be one the
      kernel phase held; then ``launch.serve.serve``
      decoding 512
@@ -99,7 +109,7 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      seed): ``launch.train.train`` for 6 AdamW steps at batch 2 x 4,096
      (both scan kernels; the same loss checks against the plain scan, the
      same step split), ``make_prefill_step`` at batch 2 x 4,096 (the
-     forward kernel) and ``make_serve_step`` decoding 256 greedy tokens at
+     forward kernel) and ``make_serve_step`` decoding 128 greedy tokens at
      batch 8 from ``init_cache``; and, in f32, the prefill logits over 128
      tokens through the kernel against the recurrent decode's, token by
      token (within 1e-2 of the largest logit); the card's SM clock
@@ -117,7 +127,10 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      synthesized run bit for bit the replay of its materialized trace with
      the synthesized noise rows; a grid, an ASHA and a CE search over three
      named workloads and a two-seed synthesized sweep over a mixed 2/3-tier
-     panel (rankings, survivors and round records equal); the serving loop
+     panel (rankings, survivors and round records equal); the robustness
+     board's union pass at full width and T = 256 bit for bit its grouped
+     passes, at n = 4,096 card == CPU, and there padded to a multiple of
+     5 lanes on a mesh of 1 bit for bit the plain pass; the serving loop
      at reduced
      granite-8b (48 tokens, batch 2, pages of 8) on the card and on the
      CPU with the same weights and streams (plans, residency, slots and
@@ -181,18 +194,21 @@ from repro_torch.simulator import (experiment, machine_spec,  # noqa: E402
                                    machines, scan_engine, scenarios, search,
                                    tuning, workload_spec)
 from repro_torch.tiering import paged_kv as PK  # noqa: E402
+from repro_torch.simulator.engine import SimResult  # noqa: E402
 from repro_torch.simulator.sampling import (  # noqa: E402
     synth_noise_field, uniform_field)
 from repro_torch.utils import prng  # noqa: E402
 from repro_torch.utils.pytree import (flatten_with_path, leaves,  # noqa: E402
                                       map_leaves)
-from repro_torch.utils.pytree import unflatten  # noqa: E402
+from repro_torch.utils.pytree import take_lanes, unflatten  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-B, N, K, T = 16, 65536, 8192, 4096
+# T: the ARMS sweep's intervals, cut from 4,096 with the SSM decode's
+# tokens (256 -> 128) to pay for the robustness board: under 700 s
+B, N, K, T = 16, 65536, 8192, 2048
 PLAN = 64                      # ARMSConfig.bs_max: promote/demote widths
 # kernel -> (its CUDA source, the TPU kernel it replaces as file:line)
 ROUTES = {
@@ -434,6 +450,7 @@ def kernel_phase(dev, rng):
                   nbytes(m.lat_ns, m.bw_read, m.bw_write, m.mlp, *args[1:6])
                   + 6 * lanes * 4, (2 * R + 1) * lanes * N)
     held = study_rows(entry, f, rng, dev, syn)
+    account_lane_rows(f, rng, dev)
     serving_rows(entry, f, rng)
     score_rows(rows, entry, f, rng)
     flash_rows(rows, rng)
@@ -571,6 +588,56 @@ def study_rows(entry, f, rng, dev, syn):
           nbytes(*args) + 3 * 4 * Bmax * N, 6 * Bmax * N)
     torch.cuda.empty_cache()
     return held
+
+
+# the lane counts a lane of the accounting kernel is held at: one lane, the
+# nine-workload sweeps, a board family's grouped pass, the board and the
+# study's widest pass
+ACCOUNT_LANES = (1, 9, 21, 168, 216)
+
+
+def account_lane_rows(f, rng, dev):
+    """``interval_account``: one lane embedded in batches of 1, 9, 21, 168
+    and 216 lanes (at the first, middle and last place; each batch at the
+    cluster size its chooser picks), on 2- and 3-tier rows whose f64 sums
+    are not exact (values over some 2^46), gives the same six f32 outputs
+    bit for bit: each lane's row is summed in 16 fixed sub-slices, added
+    in order.  The kernel's agreement with its plain version is the exact
+    lines above."""
+    Bmax = max(ACCOUNT_LANES)
+    for mname in ("pmem-large", "dram-cxl-pmem"):
+        spec = machines.get(mname)
+        R = spec.n_tiers
+        mach = machine_spec.lane_stack([spec] * Bmax, N, K, dev)[0]
+        true = f(np.exp(rng.normal(0.0, 8.0, (Bmax, N))).astype(np.float32))
+        args = (true, f(rng.integers(0, R, (Bmax, N)).astype(np.int32)),
+                f(rng.integers(0, PLAN, (Bmax, R - 1)).astype(np.float32)),
+                f(rng.integers(0, PLAN, (Bmax, R - 1)).astype(np.float32)),
+                ref.topk_mask_ref(true, K))
+        lane = 3
+        others = [b for b in range(Bmax) if b != lane]
+
+        def run(lanes, at):
+            idx = others[:lanes - 1]
+            idx = torch.tensor(idx[:at] + [lane] + idx[at:], device=dev)
+            take = lambda x: x.index_select(0, idx).contiguous()
+            out = ops.interval_account(take_lanes(mach, idx),
+                                       *(take(a) for a in args), K)
+            return torch.stack([o[at] for o in out]).cpu()
+
+        want = run(1, 0)
+        clusters = []
+        for lanes in ACCOUNT_LANES:
+            clusters.append(kernel.account_cluster(lanes, N, dev))
+            for at in (0, lanes // 2, lanes - 1):
+                got = run(lanes, at)
+                require(torch.equal(got, want),
+                        f"interval_account R={R}: lane bits at {lanes} "
+                        f"lanes (place {at}) {got.tolist()} != "
+                        f"{want.tolist()}")
+        print(f"kernel interval_account lane bits (n={N} R={R} k={K}): one "
+              f"lane equal bit for bit at {ACCOUNT_LANES} lanes (clusters "
+              f"{clusters}), three places each", flush=True)
 
 
 def check_held_clusters(label: str, held: set):
@@ -1128,6 +1195,8 @@ def main_path(seed: int, held: set):
     stamp("main path synthesis")
     tuned = tuning_paths(trace[:T_POL], seed, comparison)
     stamp("main path tuning")
+    board = board_paths(seed)
+    stamp("main path board")
     check_held_clusters("main path", held)
 
     rep, wall3, serve_counts = counted("serve", lambda: serve.serve(
@@ -1189,15 +1258,16 @@ def main_path(seed: int, held: set):
     paths = ssm_paths(seed)
     ssm_consistency(seed)
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
-            **fams, **synth, **tuned, "serve": serve_counts,
+            **fams, **synth, **tuned, **board, "serve": serve_counts,
             "train": train_counts, "train_ssm": ssm_counts, **paths}
 
 
 # the other policy families: knob grids of 16 lanes (12 for HybridTier) on
 # the binary route (2-tier pmem-large) and the tier-targeted route (3-tier
 # dram-cxl-pmem), at T_POL intervals of the main path's trace and CRN field
-T_POL = 512    # cut from 2,048, then from 1,024 (730 s with the build on
-#                an H100): the whole script under 700 s
+T_POL = 256    # cut from 2,048, then from 1,024 (730 s with the build on
+#                an H100), then from 512 for the robustness board (its
+#                path and check about 170 s): the whole script under 700 s
 T_PROF = 128   # intervals of each family, synthesis and tuning profile window
 BINARY_KERNELS = ("tier_migrate", "interval_account")
 TIER_KERNELS = ("interval_account",)
@@ -1649,6 +1719,147 @@ def tuning_paths(trace, seed: int, comparison) -> dict:
     return counts
 
 
+# the paper's robustness leaderboard (benchmarks/bench_robustness.py's
+# axes): every family of the suite x the adversarial scenarios x one machine
+# of each tier topology, ONE experiment.sweep that the union fabric fuses
+# into ONE pass
+BOARD_POLICIES = ("oracle", "arms", "hemem", "memtis", "tpp", "hybridtier",
+                  "jenga", "tierbpf")
+BOARD_MACHINES = ("pmem-large", "cxl-1hop", "dram-cxl-pmem")
+T_BOARD = 1024
+BOARD_KERNELS = ("ewma_update", "topk_mask", "interval_account")
+
+
+def board_sweep(seed: int, T_: int, n: int = N, k: int = K, **kw):
+    """The board's ``experiment.sweep`` (default dispatch unless ``kw``
+    says otherwise), with its pass records."""
+    with scan_engine.count_dispatches() as ctr:
+        res = experiment.sweep(
+            list(BOARD_POLICIES), workloads=scenarios.suite(n, k),
+            machines=list(BOARD_MACHINES), k=k, T=T_, n=n, sim_seed=seed,
+            wl_seed=seed, **kw)
+    return res, ctr.records
+
+
+def leaderboard(res) -> dict:
+    """{policy: (worst slowdown, its cell, mean slowdown, worst thrash,
+    mean thrash)}: each cell's exec time over the oracle's on the same
+    cell, thrash the wasteful share of its migrations."""
+    cells = [(w, m) for w in res.axes["workload"] for m in res.axes["machine"]]
+    oracle = {c: res.at(policy="oracle", workload=c[0],
+                        machine=c[1]).exec_time_s for c in cells}
+    board = {}
+    for p in BOARD_POLICIES:
+        rows = []
+        for c in cells:
+            r = res.at(policy=p, workload=c[0], machine=c[1])
+            rows.append((r.exec_time_s / oracle[c], f"{c[0]}@{c[1]}",
+                         r.wasteful / max(r.promotions + r.demotions, 1)))
+        worst = max(rows)
+        board[p] = (worst[0], worst[1], sum(r[0] for r in rows) / len(rows),
+                    max(r[2] for r in rows), sum(r[2] for r in rows)
+                    / len(rows))
+    return board
+
+
+def board_paths(seed: int) -> dict:
+    """The robustness leaderboard on the card: the eight families x the
+    seven scenarios of ``scenarios.suite(65536, 8192)`` x ``pmem-large``,
+    ``cxl-1hop`` and ``dram-cxl-pmem`` (2 and 3 tiers in one pass), T =
+    1,024, ``sim_seed`` and ``wl_seed`` the seed: 168 lanes in ONE union
+    pass (``dispatch="union"``, ``families=8``), its lane-intervals/s
+    over its wall (set-up included), peak device memory, the busy share
+    of its first 128 intervals and each policy's worst and mean slowdown
+    over the oracle and its thrash.  -> {path: launch counts}."""
+    lanes = len(BOARD_POLICIES) * len(scenarios.suite(N, K)) \
+        * len(BOARD_MACHINES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (res, recs), wall, counts = counted(
+        "board", lambda: board_sweep(seed, T_BOARD), BOARD_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    passes = [(r["dispatch"], r["families"], r["lanes"]) for r in recs]
+    require(len(recs) == 1 and recs[0]["dispatch"] == "union"
+            and recs[0]["families"] == len(BOARD_POLICIES)
+            and recs[0]["lanes"] == lanes and recs[0]["T"] == T_BOARD,
+            f"board: passes {passes}, expected one union pass of {lanes} "
+            f"lanes")
+    require(all(np.isfinite(r.exec_time_s) for _, r in res.items())
+            and sum(r.promotions for _, r in res.items()) > 0,
+            "board: an exec time not finite or no promotion")
+    print(f"main path board: lanes={lanes} T={T_BOARD} n={N} k={K} "
+          f"passes=1 dispatch=union families={recs[0]['families']} "
+          f"wall_s={wall:.3f} lane_intervals_per_s="
+          f"{lanes * T_BOARD / wall:.1f} peak_device_memory_gib={peak:.2f} "
+          f"launches={counts}", flush=True)
+    board = leaderboard(res)
+    for p in sorted(board, key=lambda q: board[q][0]):
+        worst, cell, mean, wthr, mthr = board[p]
+        print(f"main path board {p}: worst_slowdown={worst:.4f} "
+              f"worst_cell={cell} mean_slowdown={mean:.4f} "
+              f"worst_thrash={wthr:.4f} mean_thrash={mthr:.4f}", flush=True)
+    profiled(f"profile board T={T_PROF}",
+             lambda: board_sweep(seed, T_PROF), top=8)
+    return {"board": counts}
+
+
+def board_check(seed: int):
+    """The board's union pass held three ways: at full width (168 lanes,
+    n = 65,536) for T = 256 against ``dispatch="grouped"`` (eight passes
+    of 21 lanes) bit for bit on every field and timeline; at n = 4,096 (k
+    = 512, T = 128) card == CPU (counts and integer timelines exact,
+    exec_time within 1e-4 relative); and there a mesh of 1 with lanes
+    padded to a multiple of 5 bit for bit the plain union pass."""
+    fields = [fl.name for fl in dataclasses.fields(SimResult)
+              if fl.name != "name"]
+
+    def bitwise(ra, rb, what):
+        require(ra.axes == rb.axes, f"{what}: axes differ")
+        for (c, a), (_, b) in zip(ra.items(), rb.items()):
+            for fl in fields:
+                va, vb = getattr(a, fl), getattr(b, fl)
+                require(np.array_equal(np.asarray(va), np.asarray(vb)),
+                        f"{what} {c} {fl}: {va} != {vb}")
+
+    walls = {}
+
+    def timed(label, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = board_sweep(seed, *args, **kw)
+        torch.cuda.synchronize()
+        walls[label] = time.time() - t0
+        return out
+
+    union, recs = timed("union", 256, timelines=True)
+    require(len(recs) == 1 and recs[0]["dispatch"] == "union", "board union")
+    grouped, grecs = timed("grouped", 256, timelines=True,
+                           dispatch="grouped")
+    require(len(grecs) == len(BOARD_POLICIES), "board grouped passes")
+    bitwise(union, grouped, "board union vs grouped")
+    print(f"board check: full width (lanes={recs[0]['lanes']} n={N} "
+          f"T=256) union == grouped bit for bit on every field and "
+          f"timeline; union wall_s={walls['union']:.3f}, grouped "
+          f"({len(grecs)} passes) wall_s={walls['grouped']:.3f}",
+          flush=True)
+    del union, grouped
+    torch.cuda.empty_cache()
+    n, k, T_ = 4096, 512, 128
+    runs = {dev: board_sweep(seed, T_, n, k, timelines=True, device=dev)[0]
+            for dev in ("cuda", "cpu")}
+    for (c, a), (_, b) in zip(runs["cuda"].items(), runs["cpu"].items()):
+        same_runs(a, b, f"board {c}")
+    padded, precs = board_sweep(seed, T_, n, k, timelines=True, mesh=1,
+                                _pad_multiple=5)
+    require(precs[0]["padded_lanes"] == 170 and precs[0]["mesh"] == 1,
+            f"board padding: {precs[0]}")
+    bitwise(padded, runs["cuda"], "board mesh=1 pad_multiple=5")
+    promos = [r.promotions for _, r in runs["cuda"].items()]
+    print(f"board check: n={n} T={T_} card == cpu over {len(promos)} lanes "
+          f"(promotions {sum(promos)}); mesh=1 padded to 170 lanes bit "
+          f"for bit the plain union pass", flush=True)
+
+
 def search_check(seed: int, n: int = 4096, T_: int = 256, k: int = 512):
     """The search engine on the card against the CPU at n = 4,096, T =
     256 over three named workloads: a grid (HeMem, 8 configs), an ASHA
@@ -1706,7 +1917,7 @@ def search_check(seed: int, n: int = 4096, T_: int = 256, k: int = 512):
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 SSM_ARCH = "mamba2-370m"
 SSM_KERNELS = ("mamba_scan_fwd", "mamba_scan_bwd")
-DECODE_BATCH, DECODE_TOKENS = 8, 256
+DECODE_BATCH, DECODE_TOKENS = 8, 128
 SCAN_KERNEL = re.compile(r"(void )?ms_[a-z_]+[<(]")
 
 
@@ -1811,7 +2022,7 @@ def train_breakdown(arch: str, seed: int, first_loss: float, swap,
 def ssm_paths(seed: int) -> dict:
     """mamba2-370m at full width through the serving steps: one
     ``make_prefill_step`` at batch 2 x 4,096 (the forward kernel must
-    run) and ``make_serve_step`` decoding 256 greedy tokens at batch 8
+    run) and ``make_serve_step`` decoding 128 greedy tokens at batch 8
     from ``init_cache`` (the recurrence in plain torch, no kernel).  ->
     {path: launch counts}."""
     dev = torch.device("cuda")
@@ -2364,7 +2575,7 @@ def main():
         row["launches"] = sum(c[nm] for c in by_path.values())
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
     for check in (whole_path_check, policy_check, synth_check, search_check,
-                  serve_check, train_check, ssm_decode_check):
+                  board_check, serve_check, train_check, ssm_decode_check):
         t1 = time.time()
         check(args.seed)
         print(f"{check.__name__}: {time.time() - t1:.1f}s", flush=True)

@@ -36,8 +36,14 @@ Ranking: ``ranked_take`` follows ``lax.top_k`` on ``where(mask, -key,
 through ``costbenefit.ranked_top``; ``rank_desc`` follows ``jnp.argsort``,
 a stable sort whose comparator makes -0.0 equal to +0.0.
 
-The per-lane ``mixed_observation`` hooks (the union fabric) and the numpy
-engine's ``LegacyPolicyAdapter`` wait.
+Per-lane hooks, read by the engine for ``mixed_observation`` specs (the
+union fabric, simulator/fabric.py): ``wants_true_lane`` (bool [B]: the
+lane observes true counts) and ``slow_extra_lane`` (f32 [B]: ns charged a
+slow-tier access); their defaults read the class attributes.  The engine
+reads ``fire_flags(do)`` on the host once an interval: the default is
+``do.any()``, the union's one flag a member.
+
+The numpy engine's ``LegacyPolicyAdapter`` waits.
 """
 from __future__ import annotations
 
@@ -127,7 +133,7 @@ class PolicySpec:
     has_mode: bool = False
     #: specs that target tiers directly (``tier_policy``)
     tier_native: bool = False
-    #: union specs mixing observation kinds per lane (not ported yet)
+    #: union specs mixing observation kinds per lane (the per-lane hooks)
     mixed_observation: bool = False
 
     DEFAULT_SAMPLE_PERIOD = 10_000.0
@@ -169,6 +175,25 @@ class PolicySpec:
     def mode_of(self, state):
         """Controller mode for the timeline (ARMS; 0 elsewhere)."""
         return torch.zeros_like(state.t, dtype=torch.int32)
+
+    # --- per-lane hooks (``mixed_observation`` specs only) ---------------
+    def wants_true_lane(self, B: int, device):
+        """bool [B]: does each lane observe true counts (the oracle lanes
+        of a union spec)?"""
+        return torch.full((B,), bool(type(self).wants_true_counts),
+                          dtype=torch.bool, device=device)
+
+    def slow_extra_lane(self, B: int, device):
+        """f32 [B]: each lane's overhead a slow-tier access, ns (the TPP
+        lanes of a union spec); a 0.0 lane adds +0.0 to the wall, a no-op
+        on its bits."""
+        return torch.full((B,), type(self).slow_access_extra_ns,
+                          dtype=torch.float32, device=device)
+
+    def fire_flags(self, do):
+        """bool [F] on the host, the engine's one sync an interval: any
+        flag set runs the policy pass.  One flag, ``do.any()``."""
+        return do.any().reshape(1).cpu()
 
     def policy(self, state, slow_bw, app_bw, k: int):
         """-> (state, promote, demote): the full policy pass."""

@@ -100,28 +100,35 @@ __device__ __forceinline__ int warp_sum(int v) {
 // read once per lane, 9 bytes a page; at the replay's 16 x 65,536 (one
 // true and oracle row shared by the lanes) that is 1.35 us at the HBM
 // rate, so the floor in practice is a launch and a few memory latencies.
-// Design: each lane on a thread-block cluster of C CTAs, C the most (up to
-// the non-portable 16, slices of at least ACCOUNT_MIN_SLICE pages) at which
-// the device holds all B clusters at once (cudaOccupancyMaxActiveClusters,
+// Design: each lane on a thread-block cluster of C CTAs, C a divisor of 16
+// (slices of at least ACCOUNT_MIN_SLICE pages), the most at which the
+// device holds all B clusters at once (cudaOccupancyMaxActiveClusters,
 // arms_account_cluster), so a lane's pages are read by up to 16 SMs and
-// not one, even at B 1.  Each CTA takes a contiguous slice: 16-byte loads of
-// the true and tier rows and one 4-byte word of four oracle bytes where
-// the lane's rows allow them (a scalar ragged tail), ACCOUNT_ILP of a
-// thread's loads in flight.  Each thread accumulates the R-1 masked sums
-// and the total in f64, rounded once to f32 as the plain version rounds
-// its f64 sums (the two sum in different orders, so the f64 sums are not
-// exact and may differ; their error lies far below half an f32 ulp, so
-// the f32 results agree unless a sum lands within it of a rounding
-// boundary), and the recall count as an int; one warp-shuffle
-// pass reduces them all, then one barrier and one pass over the warps;
-// rank 0 sums the CTAs' partials through distributed shared memory in
-// rank order and runs the scalar epilogue of the Pallas body in f32, op
-// for op.  Every sum runs in a fixed order, with no atomics.  In trace mode
-// `true` and `oracle` are one row shared by all lanes: their lane stride is
-// 0 and the lanes' reads hit L2.
+// not one, even at B 1.  Sums in a fixed order, whatever C: a lane's row
+// is cut into ACCOUNT_SUBS fixed sub-slices, and CTA r of the cluster sums
+// sub-slices r, r + C, ..., each with the same thread-to-page mapping
+// every time: thread t takes the 4-page words t, t + 256, ... of the
+// sub-slice in ascending order (16-byte loads of the true and tier rows
+// and one 4-byte word of four oracle bytes where the lane's rows allow
+// them, ACCOUNT_ILP of a thread's loads in flight; the same pages in the
+// same order one by one where they do not), then the ragged tail.  Each
+// thread accumulates the R-1 masked sums and the total in f64, rounded
+// once to f32 as the plain version rounds its f64 sums (the two sum in
+// different orders, so the f64 sums are not exact and may differ; their
+// error lies far below half an f32 ulp, so the f32 results agree unless a
+// sum lands within it of a rounding boundary), and the recall count as an
+// int.  One warp-shuffle pass a sub-slice, then one barrier and one pass
+// over the warps (in warp order, all of a CTA's sub-slices at once) reduce
+// each sub-slice to one f64 partial; rank 0 adds the ACCOUNT_SUBS partials
+// in sub-slice order through distributed shared memory and runs the scalar
+// epilogue of the Pallas body in f32, op for op.  So a lane's outputs are
+// the same bits at every lane count and cluster size, with no atomics.
+// In trace mode `true` and `oracle` are one row shared by all lanes: their
+// lane stride is 0 and the lanes' reads hit L2.
 #define ACCOUNT_THREADS 256
 #define ACCOUNT_ILP 4            // 16-byte words of a thread in flight
 #define ACCOUNT_MIN_SLICE 1024   // fewest pages a CTA of a cluster takes
+#define ACCOUNT_SUBS 16          // fixed sub-slices of a lane's row
 
 // One page into a thread's sums: acc[0] the total, acc[1 + r] tier r's.
 __device__ __forceinline__ void account_page(double (&acc)[MAX_TIERS],
@@ -143,10 +150,12 @@ __global__ void __launch_bounds__(ACCOUNT_THREADS)
         const int* __restrict__ tier, const float* __restrict__ mig_up,
         const float* __restrict__ mig_down,
         const uint8_t* __restrict__ oracle, int64_t oracle_stride,
-        float* __restrict__ out, int n, int R, int k, int slice) {
-  __shared__ double s_warp[ACCOUNT_THREADS / 32][MAX_TIERS];
+        float* __restrict__ out, int n, int R, int k, int sub) {
+  // each warp's sums of this CTA's sub-slices (entry sl for sl = rank mod
+  // C), then the CTA's sum of each (rank 0 reads them)
+  __shared__ double s_warp[ACCOUNT_SUBS][ACCOUNT_THREADS / 32][MAX_TIERS];
   __shared__ int s_whits[ACCOUNT_THREADS / 32];
-  __shared__ double s_part[MAX_TIERS];   // this CTA's sums (read by rank 0)
+  __shared__ double s_part[ACCOUNT_SUBS][MAX_TIERS];
   __shared__ int s_phits;
   __shared__ double s_tot[MAX_TIERS];    // the lane's (rank 0)
   __shared__ int s_thits;
@@ -156,83 +165,97 @@ __global__ void __launch_bounds__(ACCOUNT_THREADS)
   const int csize = (int)cluster.num_blocks();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int64_t start = (int64_t)rank * slice;
-  const int64_t left = (int64_t)n - start;
-  const int len = left <= 0 ? 0 : (left < slice ? (int)left : slice);
-  const float* row = true_ + b * true_stride + start;
-  const int* trow = tier + (int64_t)b * n + start;
-  const uint8_t* orow = oracle + b * oracle_stride + start;
 
-  double acc[MAX_TIERS];
-#pragma unroll
-  for (int s = 0; s < MAX_TIERS; ++s) acc[s] = 0.0;
-  int hits = 0, done = 0;
-  if (((((uintptr_t)row | (uintptr_t)trow) & 15) |
-       ((uintptr_t)orow & 3)) == 0) {
+  int hits = 0;
+  for (int sl = rank; sl < ACCOUNT_SUBS; sl += csize) {
+    const int64_t start = (int64_t)sl * sub;
+    const int64_t left = (int64_t)n - start;
+    const int len = left <= 0 ? 0 : (left < sub ? (int)left : sub);
+    const float* row = true_ + b * true_stride + start;
+    const int* trow = tier + (int64_t)b * n + start;
+    const uint8_t* orow = oracle + b * oracle_stride + start;
     const int nv = len / 4;
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    const int4* t4 = reinterpret_cast<const int4*>(trow);
-    const uint32_t* o4 = reinterpret_cast<const uint32_t*>(orow);
-    for (int v0 = tid; v0 < nv; v0 += ACCOUNT_ILP * ACCOUNT_THREADS) {
-      float4 x[ACCOUNT_ILP];
-      int4 t[ACCOUNT_ILP];
-      uint32_t o[ACCOUNT_ILP];
-#pragma unroll
-      for (int u = 0; u < ACCOUNT_ILP; ++u) {
-        const int v = v0 + u * ACCOUNT_THREADS;
-        if (v < nv) {
-          x[u] = r4[v];
-          t[u] = t4[v];
-          o[u] = o4[v];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < ACCOUNT_ILP; ++u) {
-        if (v0 + u * ACCOUNT_THREADS < nv) {
-          account_page(acc, hits, x[u].x, t[u].x, (o[u] & 0xffu) != 0, R);
-          account_page(acc, hits, x[u].y, t[u].y, (o[u] & 0xff00u) != 0, R);
-          account_page(acc, hits, x[u].z, t[u].z, (o[u] & 0xff0000u) != 0,
-                       R);
-          account_page(acc, hits, x[u].w, t[u].w, (o[u] >> 24) != 0, R);
-        }
-      }
-    }
-    done = nv * 4;
-  }
-  for (int i = done + tid; i < len; i += ACCOUNT_THREADS)
-    account_page(acc, hits, row[i], trow[i], orow[i] != 0, R);
 
-  // the CTA's sums: one shuffle pass, one barrier, one pass over the warps
+    double acc[MAX_TIERS];
 #pragma unroll
-  for (int s = 0; s < MAX_TIERS; ++s)
-    if (s < R) acc[s] = warp_sum(acc[s]);
-  hits = warp_sum(hits);
-  if (lane == 0) {
+    for (int s = 0; s < MAX_TIERS; ++s) acc[s] = 0.0;
+    if (((((uintptr_t)row | (uintptr_t)trow) & 15) |
+         ((uintptr_t)orow & 3)) == 0) {
+      const float4* r4 = reinterpret_cast<const float4*>(row);
+      const int4* t4 = reinterpret_cast<const int4*>(trow);
+      const uint32_t* o4 = reinterpret_cast<const uint32_t*>(orow);
+      for (int v0 = tid; v0 < nv; v0 += ACCOUNT_ILP * ACCOUNT_THREADS) {
+        float4 x[ACCOUNT_ILP];
+        int4 t[ACCOUNT_ILP];
+        uint32_t o[ACCOUNT_ILP];
+#pragma unroll
+        for (int u = 0; u < ACCOUNT_ILP; ++u) {
+          const int v = v0 + u * ACCOUNT_THREADS;
+          if (v < nv) {
+            x[u] = r4[v];
+            t[u] = t4[v];
+            o[u] = o4[v];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < ACCOUNT_ILP; ++u) {
+          if (v0 + u * ACCOUNT_THREADS < nv) {
+            account_page(acc, hits, x[u].x, t[u].x, (o[u] & 0xffu) != 0, R);
+            account_page(acc, hits, x[u].y, t[u].y, (o[u] & 0xff00u) != 0,
+                         R);
+            account_page(acc, hits, x[u].z, t[u].z, (o[u] & 0xff0000u) != 0,
+                         R);
+            account_page(acc, hits, x[u].w, t[u].w, (o[u] >> 24) != 0, R);
+          }
+        }
+      }
+    } else {   // the same pages in the same order, one by one
+      for (int v = tid; v < nv; v += ACCOUNT_THREADS)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          account_page(acc, hits, row[4 * v + e], trow[4 * v + e],
+                       orow[4 * v + e] != 0, R);
+    }
+    for (int i = nv * 4 + tid; i < len; i += ACCOUNT_THREADS)
+      account_page(acc, hits, row[i], trow[i], orow[i] != 0, R);
+
+    // the sub-slice's sums a warp: one shuffle pass, no barrier
 #pragma unroll
     for (int s = 0; s < MAX_TIERS; ++s)
-      if (s < R) s_warp[warp][s] = acc[s];
-    s_whits[warp] = hits;
+      if (s < R) acc[s] = warp_sum(acc[s]);
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < MAX_TIERS; ++s)
+        if (s < R) s_warp[sl][warp][s] = acc[s];
+    }
   }
+  hits = warp_sum(hits);
+  if (lane == 0) s_whits[warp] = hits;
   __syncthreads();
-  if (tid < R) {
+  // each of this CTA's sub-slice sums over the warps, in warp order
+  for (int i = tid; i < ACCOUNT_SUBS * R; i += ACCOUNT_THREADS) {
+    const int sl = i / R, r = i - sl * R;
+    if (sl % csize != rank) continue;
     double v = 0.0;
-    for (int w = 0; w < ACCOUNT_THREADS / 32; ++w) v += s_warp[w][tid];
-    s_part[tid] = v;
-  } else if (tid == 32) {
+    for (int w = 0; w < ACCOUNT_THREADS / 32; ++w) v += s_warp[sl][w][r];
+    s_part[sl][r] = v;
+  }
+  if (tid == ACCOUNT_THREADS - 1) {
     int h = 0;
     for (int w = 0; w < ACCOUNT_THREADS / 32; ++w) h += s_whits[w];
     s_phits = h;
   }
   cluster.sync();
-  if (rank == 0) {   // the lane's sums, rank by rank: every remote load at once
+  if (rank == 0) {   // the lane's sums, sub-slice by sub-slice: every remote
+                     // load at once
     if (tid < R) {
-      double part[16];
+      double part[ACCOUNT_SUBS];
 #pragma unroll
-      for (int r = 0; r < 16; ++r)
-        part[r] = r < csize ? cluster.map_shared_rank(s_part, r)[tid] : 0.0;
+      for (int sl = 0; sl < ACCOUNT_SUBS; ++sl)
+        part[sl] = cluster.map_shared_rank(&s_part[sl][tid], sl % csize)[0];
       double v = 0.0;
 #pragma unroll
-      for (int r = 0; r < 16; ++r) v += part[r];
+      for (int sl = 0; sl < ACCOUNT_SUBS; ++sl) v += part[sl];
       s_tot[tid] = v;
     } else if (tid == 32) {
       int part[16];
@@ -294,9 +317,11 @@ __global__ void __launch_bounds__(ACCOUNT_THREADS)
 
 static cudaError_t account_launch(int B, int n, int cluster,
                                   cudaStream_t stream, ClusterLaunch* L) {
-  if (cluster < 1 || cluster > 16) return cudaErrorInvalidValue;
-  // slices start on a 16-byte boundary of a lane's rows
-  L->slice = ((n + cluster - 1) / cluster + 3) / 4 * 4;
+  // a divisor of ACCOUNT_SUBS: every CTA takes as many sub-slices
+  if (cluster < 1 || cluster > 16 || ACCOUNT_SUBS % cluster != 0)
+    return cudaErrorInvalidValue;
+  // sub-slices start on a 16-byte boundary of a lane's rows
+  L->slice = ((n + ACCOUNT_SUBS - 1) / ACCOUNT_SUBS + 3) / 4 * 4;
   return cluster_config(interval_account_kernel, B, cluster, ACCOUNT_THREADS,
                         0, stream, L);
 }

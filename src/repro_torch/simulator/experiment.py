@@ -17,22 +17,19 @@ Lane layout of a pass: ``((w*P + p)*M + m)*S + s`` -- workloads
 outermost (each workload's synthesized row feeds its P*M*S lanes),
 machines of different tier depth unified by neutral padding
 (``machine_spec.pad_tiers``), seeds innermost.  Policies of different
-families (different state structures, ``utils.pytree.treedef``) cannot
-share a lane axis: each family group is one pass over the whole W x M x S
-product, so a single-family sweep (a tuning grid across machines or
-workloads) is exactly one pass.
+families (different state structures, ``utils.pytree.treedef``) share a
+lane axis through the union fabric (simulator/fabric.py): a mixed-family
+panel is ONE pass (``dispatch="auto"`` or ``"union"``), bit for bit the
+grouped path (``"grouped"``: one pass a family over the whole W x M x S
+product).  A single-family sweep (a tuning grid across machines or
+workloads) is exactly one plain pass.  ``mesh`` shards the lanes over
+devices, bit for bit the unsharded pass.
 
 Noise pairing: with one seed every lane shares common random numbers
 (trace mode: the uniform field of ``sim_seed``; synth mode: the
 counter-based ``"crn_prng"`` rows), so comparisons across policies,
 workloads and machines are paired.  With several seeds each seed lane
 draws its own ``"prng"`` noise from ``PRNGKey(seed)``.
-
-Waiting for the union fabric and lane sharding (ROADMAP queue 1), raising
-``NotImplementedError``: ``dispatch="union"``, ``dispatch="auto"`` on a
-mixed-family panel (JAX fuses it into one pass; ``"grouped"`` gives the
-same cells, the union's bitwise reference) and any ``mesh`` that would
-shard the lanes.
 """
 from __future__ import annotations
 
@@ -181,7 +178,8 @@ def sweep(policies, *, workloads=None, trace=None, machines="pmem-large",
           timelines: bool = False, use_interval_kernel: bool = True,
           dispatch: str = "auto", mesh=None, _pad_multiple=None,
           device=None) -> SweepResult:
-    """Axis-product sweep: one lane-batched pass per policy family.
+    """Axis-product sweep: one lane-batched pass (one a family under
+    ``dispatch="grouped"``).
 
     ``policies``: policy names and/or specs (a tuning grid is a list of
     same-family specs).  ``workloads``: workload names / WorkloadSpecs
@@ -197,11 +195,18 @@ def sweep(policies, *, workloads=None, trace=None, machines="pmem-large",
     ``timelines=True`` stacks the [T] ``timeline_*`` series instead.  The
     scalars are the same either way.
 
-    ``dispatch``: ``"grouped"`` (one pass per family) or ``"auto"``
-    (the same on a single-family panel); ``mesh``: ``None`` or ``"auto"``
-    on one device.  ``use_interval_kernel=False`` pins JAX's unfused
-    interval path, which the port does not have: it raises ValueError.
-    ``device``: where the passes run (``None``: the CUDA card).
+    ``dispatch``: ``"auto"`` fuses more than one family into ONE pass
+    through the union fabric (simulator/fabric.py) and leaves a
+    single-family panel on the plain stacked path; ``"union"`` and
+    ``"grouped"`` force either side (grouped: one pass a family, the
+    union's bitwise reference).  ``mesh`` shards the lane axis over
+    devices: ``None``, ``"auto"`` (every device of ``device``'s kind) or
+    a device count; results are bit for bit the unsharded pass's, padded
+    lanes dropped before labeling.  ``_pad_multiple`` forces lane padding
+    even on a mesh of 1 (tests).  ``use_interval_kernel=False`` pins
+    JAX's unfused interval path, which the port does not have: it raises
+    ValueError.  ``device``: where the passes run (``None``: the CUDA
+    card).
     """
     if not use_interval_kernel:
         raise ValueError(
@@ -268,16 +273,22 @@ def sweep(policies, *, workloads=None, trace=None, machines="pmem-large",
     if dispatch not in ("auto", "union", "grouped"):
         raise ValueError(f"dispatch={dispatch!r}; "
                          "expected auto | union | grouped")
-    # group same-family policies: different state structures cannot stack.
-    # Key on the treedef (class + meta), not the class: same-family specs
-    # with different meta (e.g. migration_limit) have different plan
-    # widths.
-    groups = {}
-    for i, sp in enumerate(pol_specs):
-        groups.setdefault(treedef(sp), []).append(i)
-    if dispatch == "union" or (dispatch == "auto" and len(groups) > 1):
-        fabric.build_union(pol_specs, n, k)
     mach_all, caps_all = machine_spec.lane_stack(mach_specs, n, k, dev)
+    # group same-family policies: different state structures cannot stack,
+    # unless the union fabric fuses the mixed panel into ONE group.  Key
+    # on the treedef (class + meta), not the class: same-family specs with
+    # different meta (e.g. migration_limit) have different plan widths.
+    n_families = len({treedef(sp) for sp in pol_specs})
+    use_union = dispatch == "union" or (dispatch == "auto"
+                                        and n_families > 1)
+    if use_union:
+        lane_specs = fabric.build_union(pol_specs, n, k, mach_all)
+        groups = {"union": list(range(P))}
+    else:
+        lane_specs = pol_specs
+        groups = {}
+        for i, sp in enumerate(pol_specs):
+            groups.setdefault(treedef(sp), []).append(i)
     if not synth:
         trace_d = to(np.asarray(trace, np.float32))
         oracle_d = to(oracle)
@@ -291,13 +302,14 @@ def sweep(policies, *, workloads=None, trace=None, machines="pmem-large",
         m_of = (lane // S) % M
         s_of = lane % S
         lidx = lambda a: torch.from_numpy(a.astype(np.int64)).to(dev)
-        spec_l = take_lanes(stack_specs([pol_specs[i] for i in idxs]).to(dev),
-                            lidx(p_local))
+        spec_l = take_lanes(
+            stack_specs([lane_specs[i] for i in idxs]).to(dev),
+            lidx(p_local))
         mach_l = take_lanes(mach_all, lidx(m_of))
         caps_l = caps_all.index_select(0, lidx(m_of))
         keys = torch.stack([prng.PRNGKey(int(seeds[s]), dev) for s in s_of]) \
             if sampling == "prng" else None
-        min_period = min(pol_specs[i].min_sampling_period() for i in idxs)
+        min_period = min(lane_specs[i].min_sampling_period() for i in idxs)
         if synth:
             out, finfo = fabric.sim_synth(
                 spec_l, wl, k, mach_l, caps_l, keys, sample,
@@ -312,10 +324,12 @@ def sweep(policies, *, workloads=None, trace=None, machines="pmem-large",
                 sampling, scan_engine._need_normal(trace, min_period),
                 reduce=reduce, mesh=mesh, pad_multiple=_pad_multiple)
         scan_engine._record_dispatch(
-            lanes=L, sampling=sampling, policy=pol_specs[idxs[0]].name,
+            lanes=L, sampling=sampling, policy=lane_specs[idxs[0]].name,
             synth=synth, workloads=W, configs=Pg, machines=M, seeds=S, T=T,
             axis_product=True, interval_kernel=True, reduce=reduce,
-            dispatch="grouped", families=1, device=str(dev), **finfo)
+            dispatch="union" if use_union else "grouped",
+            families=n_families if use_union else 1, device=str(dev),
+            **finfo)
         for l in range(L):
             w = l // (Pg * M * S)
             p = idxs[p_local[l]]

@@ -23,7 +23,10 @@ executes them (plain torch, as it is plain XLA in JAX); up-moves count as
 promotions, down-moves as demotions.  ``tier_shim`` sends a binary spec
 down that route through the protocol's shim, bit for bit the hop-chain
 route.  TPP's hint-fault overhead (``slow_access_extra_ns``) is added to
-each interval's wall in JAX's f32 order.
+each interval's wall in JAX's f32 order.  ``mixed_observation`` specs (the
+union fabric's ``UnionSpec``, one family a lane) read the per-lane hooks
+instead: the oracle lanes observe true counts and the others the shared
+sampled row, and each lane's overhead is its own.
 
 Entry points:
   * ``simulate``             — one run of any spec, SimResult output;
@@ -50,20 +53,18 @@ the synthesis default).  The keys and rows are JAX's bits
 (utils/prng.py).  Reductions: ``"stack"`` ([B, T] timelines) and
 ``"stream"`` (running sums, nothing [T]-shaped).
 
-The any-lane fire gate is a host branch on ``do.any()``: on intervals
-where no lane's policy is due, the policy pass and the migration executor
-are skipped (in JAX an all-``-1`` plan would execute nothing, so the
-outputs are the same).  The workload event gate is decided on the host
-from the specs' integer leaves, so an interval still syncs once.  Final
-[B] results are formed on the CPU.
+The any-lane fire gate is a host branch on the spec's ``fire_flags``
+(``do.any()``; a union's one flag a member, so members with no firing
+lane skip their pass): on intervals where no lane's policy is due, the
+policy pass and the migration executor are skipped (in JAX an all-``-1``
+plan would execute nothing, so the outputs are the same).  The workload
+event gate is decided on the host from the specs' integer leaves, so an
+interval still syncs once.  Final [B] results are formed on the CPU.
 
 ``experiment.sweep`` (through ``fabric.sim_trace``/``sim_synth``)
 drives ``_simulate`` with ``_TraceRows``/``_SynthRows`` and records its
 passes with ``_record_dispatch``; those underscore helpers are shared
 with exactly those two modules.
-
-Waiting for the union fabric and lane sharding (ROADMAP queue 1),
-raising ``NotImplementedError``: the ``mixed_observation`` specs.
 """
 from __future__ import annotations
 
@@ -137,13 +138,6 @@ def _need_normal(trace, min_period: float) -> bool:
     return bool(np.max(trace) / float(min_period) >= _NORMAL_SWITCH)
 
 
-def _check_spec(spec):
-    if type(spec).mixed_observation:
-        raise NotImplementedError(
-            "mixed_observation specs wait for the union fabric and lane "
-            "sharding (ROADMAP queue 1, not yet ported)")
-
-
 def _mach_lanes(machine, B: int, n: int, k: int, device):
     """One machine broadcast to B lanes -> (mach [B, ...], caps i32 [B, R])."""
     mach, caps = machine_spec.lane_stack([machines.get(machine)], n, k,
@@ -191,16 +185,21 @@ class _SynthRows:
     """Trace synthesis: the [W]-lane workload stack's rows ``true = work *
     probs`` (``workload_spec.Synth``) and their top-k oracle masks (the
     ``topk_mask`` op), each workload row feeding ``rep`` consecutive
-    lanes (lane ``w * rep + b``)."""
+    lanes (lane ``w * rep + b``).  ``widx`` (i64 [B]) instead gives each
+    lane's workload by its global index, for padded or sharded lanes
+    (fabric.py): a row gather, the same values as the repeat."""
 
     def __init__(self, wl, T: int, n: int, k: int, wl_key, with_boost: bool,
-                 rep: int):
+                 rep: int, widx=None):
         self.syn = workload_spec.Synth(wl, n, wl_key, with_boost, T)
-        self.T, self.n, self.k, self.rep = T, n, k, rep
+        self.T, self.n, self.k, self.rep, self.widx = T, n, k, rep, widx
 
     def rows(self, t: int):
         true_w = self.syn.row(t)                               # [W, n]
         orc_w = interval_ops.topk_mask(true_w, self.k)
+        if self.widx is not None:
+            return (true_w.index_select(0, self.widx),
+                    orc_w.index_select(0, self.widx))
         if self.rep == 1:
             return true_w, orc_w
         return (true_w.repeat_interleave(self.rep, 0),
@@ -281,8 +280,15 @@ def _simulate(spec, source, k: int, mach, caps, sample, sampling: str,
     ys = {"slow": [], "hits": [], "mode": [], "promos": []}
     # the policy mechanism's overhead a slow access, in JAX's f32 order:
     # wall + acc_slow * f32(extra) * f32(1e-9) / mlp
-    extra = (torch.full((), cls.slow_access_extra_ns, dtype=f32, device=dev)
-             if cls.slow_access_extra_ns else None)
+    # (mixed_observation: each lane's own, 0.0 a no-op on the wall's bits)
+    mixed = cls.mixed_observation
+    if mixed:
+        extra = spec.slow_extra_lane(B, dev)
+        wants_true = spec.wants_true_lane(B, dev)[:, None]
+    else:
+        extra = (torch.full((), cls.slow_access_extra_ns, dtype=f32,
+                            device=dev)
+                 if cls.slow_access_extra_ns else None)
     nano = torch.full((), 1e-9, dtype=f32, device=dev)
 
     for t in range(T):
@@ -296,9 +302,14 @@ def _simulate(spec, source, k: int, mach, caps, sample, sampling: str,
             period = spec.sampling_period(state)[:, None]
             observed = pebs_sample_from_uniform(
                 u, true_b, period, need_normal=need_normal)
+            if mixed:
+                # oracle lanes read true counts, the others keep the
+                # sampled row the whole batch shares
+                observed = torch.where(wants_true, true_b, observed)
         state = spec.observe(state, observed)
         do = spec.fires(state)                                   # [B]
-        fire = bool(do.any())   # the interval's one host sync
+        # the interval's one host sync
+        fire = bool(spec.fire_flags(do).any())
 
         if fire and tn:
             st2, pages, dst = spec.tier_policy(state, tier_util, slow_bw,
@@ -451,7 +462,6 @@ def simulate(spec, trace, machine, k: int, seed: int = 0, sample_u=None,
     default, bit for bit).  ``tier_shim=True`` sends a binary spec through
     the tier-targeted executor via the protocol's shim (bit for bit the
     hop-chain route)."""
-    _check_spec(spec)
     dev = resolve_device(device)
     trace_d, oracle, u, trace = _inputs(trace, k, sample_u, dev)
     T, n = trace.shape
@@ -480,7 +490,6 @@ def sweep_seeds(trace, machine, k: int, seeds, cfg: ARMSConfig | None = None,
     seeds = list(seeds)
     if not seeds:
         raise ValueError("sweep_seeds needs at least one seed")
-    _check_spec(spec)
     dev = resolve_device(device)
     trace_d, oracle, _, trace = _inputs(trace, k, None, dev)
     T, n = trace.shape
@@ -508,7 +517,6 @@ def sweep_policy_configs(spec_family, trace, machine, k: int, configs,
     if not configs:
         raise ValueError("sweep_policy_configs needs at least one config")
     specs = [spec_family(**cfg) for cfg in configs]
-    _check_spec(specs[0])
     dev = resolve_device(device)
     trace = np.asarray(trace, np.float32)
     T, n = trace.shape
@@ -639,7 +647,6 @@ def simulate_workload(spec, workload, machine, k: int, T: int, n: int,
     the replay of ``workload.materialize(T, n, wl_seed)`` with the
     ``sampling.synth_noise_field(T, n, sim_seed)`` CRN field (or with
     ``sample_u`` if given)."""
-    _check_spec(spec)
     out, sampling = _synth(lane_specs(spec, 1), [workload], k, T, n,
                            machine, 1, sim_seed, wl_seed, sample_u,
                            spec.min_sampling_period(), device)
@@ -670,7 +677,6 @@ def sweep_workloads(workloads, machine, k: int, T: int, n: int,
     workloads = list(workloads)
     if not workloads:
         raise ValueError("sweep_workloads needs at least one workload")
-    _check_spec(spec)
     W = len(workloads)
     names = _wl_names(workloads, names)
     out, _ = _synth(lane_specs(spec, W), workloads, k, T, n, machine, 1,
@@ -700,7 +706,6 @@ def sweep_workload_configs(spec_family, configs, workloads, machine, k: int,
     W, B = len(workloads), len(configs)
     names = _wl_names(workloads, names)
     pol_specs = [spec_family(**cfg) for cfg in configs]
-    _check_spec(pol_specs[0])
     lane_spec = stack_specs([pol_specs[b] for _ in range(W)
                              for b in range(B)])
     out, sampling = _synth(lane_spec, workloads, k, T, n, machine, B,

@@ -418,8 +418,9 @@ def run(family: str, strategy: str = "asha", *, trace=None,
     ``budget`` is the population of grid/asha and the total draws of CE
     (``ce_rounds`` populations of ``ceil(budget / ce_rounds)``);
     ``eta``/``rounds``/``t_min`` shape the ASHA ladder (``eta=1`` is one
-    full-horizon round: the grid, bit for bit).  ``mesh``: ``None`` or
-    ``"auto"`` on one device (``experiment.sweep``).  ``device``: where
+    full-horizon round: the grid, bit for bit).  ``mesh``: shards each
+    round's pass over devices (``experiment.sweep``; results and logical
+    lane-intervals the same at any mesh size).  ``device``: where
     the passes run (``None``: the CUDA card).
     """
     from repro_torch.simulator import tuning  # late: tuning wraps run()

@@ -201,8 +201,8 @@ def tune(family: str, trace, machine, k, budget: int = 24,
 
     Every mode streams its per-interval outputs (rows carry scalar
     summaries), so tuning memory is O(lanes) whatever T.  ``mesh``:
-    ``None`` or ``"auto"`` on one device.  ``device``: ``None`` is the
-    CUDA card.
+    shards each pass over devices (``experiment.sweep``).  ``device``:
+    ``None`` is the CUDA card.
     """
     out = search.run(family, strategy, trace=trace, machine=machine,
                      machines=machines, workloads=workloads, k=k,

@@ -7,7 +7,10 @@ instance gets ``replace(**kw)`` and ``to(device)``.
 
 ``treedef`` keys a tree's structure as ``jax.tree_util.tree_structure``
 does (class and meta values), so ``experiment.sweep`` groups policies
-as the JAX package does.
+as the JAX package does; ``from_treedef`` rebuilds a tree from its key
+and its leaves (``leaves`` order).  Tuples of tensors or of tensor
+dataclasses are trees too (the union fabric's slot states and member
+knobs).
 
 Lane helpers: sweep lanes are an explicit leading ``[B, ...]`` axis on
 every leaf (the JAX package puts them under ``vmap``).  ``lane_specs``
@@ -53,9 +56,13 @@ def _data_fields(obj):
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leaf-wise over tensor dataclasses (meta fields kept
-    from ``tree``); tensors are leaves, nested dataclasses recurse."""
+    from ``tree``); tensors are leaves, nested dataclasses and tuples
+    recurse."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, x, *[r[i] for r in rest])
+                     for i, x in enumerate(tree))
     if dataclasses.is_dataclass(tree) and hasattr(type(tree), "_meta_fields"):
         return dataclasses.replace(tree, **{
             nm: tree_map(fn, getattr(tree, nm), *[getattr(r, nm) for r in rest])
@@ -72,12 +79,30 @@ def treedef(tree):
     their shape."""
     if isinstance(tree, torch.Tensor):
         return "*"
+    if isinstance(tree, tuple):
+        return (tuple, tuple(treedef(x) for x in tree))
     cls = type(tree)
     if dataclasses.is_dataclass(tree) and hasattr(cls, "_meta_fields"):
         return (cls, tuple((nm, getattr(tree, nm)) for nm in cls._meta_fields),
                 tuple((nm, treedef(getattr(tree, nm)))
                       for nm in _data_fields(tree)))
     raise TypeError(f"not a tensor dataclass leaf: {cls.__name__}")
+
+
+def from_treedef(td, new_leaves):
+    """The tree whose ``treedef`` is ``td``, with ``new_leaves`` (in
+    ``leaves`` order) as its tensors."""
+    it = iter(new_leaves)
+
+    def build(d):
+        if d == "*":
+            return next(it)
+        if d[0] is tuple:
+            return tuple(build(x) for x in d[1])
+        cls, meta, data = d
+        return cls(**{nm: build(sub) for nm, sub in data}, **dict(meta))
+
+    return build(td)
 
 
 def lane_specs(spec, B: int):

@@ -301,10 +301,31 @@ def test_input_validation_as_jax(kw):
     dict(policies=["hemem"], mesh=2),
     dict(policies=["hemem"], _pad_multiple=4),
 ], ids=["mixed_auto", "mixed_union", "single_union", "mesh", "pad"])
-def test_union_fabric_and_sharding_raise(kw):
-    with pytest.raises(NotImplementedError,
-                       match="the union fabric and lane sharding"):
-        pexp.sweep(workloads=["gups"], k=8, T=16, n=64, device="cpu", **kw)
+def test_union_fabric_and_sharding_spellings(kw):
+    """The union fabric's and lane sharding's spellings: a mixed panel
+    (``"auto"`` or ``"union"``) and a single family under ``"union"`` run
+    as ONE union pass, bit for bit the grouped passes; ``mesh=2`` on one
+    device raises ValueError, as in JAX; ``_pad_multiple=4`` is bit for
+    bit the plain path, its record giving the padded lanes."""
+    base = dict(workloads=["gups"], k=8, T=16, n=64, device="cpu")
+    pols = kw.pop("policies")
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="device"):
+            pexp.sweep(pols, **base, **kw)
+        return
+    with pscan.count_dispatches() as ctr:
+        got = pexp.sweep(pols, **base, **kw)
+    want = pexp.sweep(pols, dispatch="grouped", **base)
+    assert ctr.count == 1
+    if "_pad_multiple" in kw:
+        assert ctr.last["dispatch"] == "grouped"
+        assert (ctr.last["lanes"], ctr.last["padded_lanes"]) == (1, 4)
+    else:
+        assert ctr.last["dispatch"] == "union"
+        assert ctr.last["families"] == len(pols)
+    assert got.axes == want.axes
+    for (_, a), (_, b) in zip(got.items(), want.items(), strict=True):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 def test_plain_path_spellings_run():
@@ -318,5 +339,4 @@ def test_plain_path_spellings_run():
     assert a.at().exec_time_s == b.at().exec_time_s
     with pytest.raises(ValueError, match="one interval path"):
         pexp.sweep(["hemem"], use_interval_kernel=False, **kw)
-    with pytest.raises(NotImplementedError):
-        fabric.UnionSpec()
+    assert fabric.resolve_mesh(1, "cpu") == 1

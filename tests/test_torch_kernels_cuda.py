@@ -31,6 +31,7 @@ from _torch_cases import account_case, migrate_case, migrate_edge_case
 from _torch_cases import t as _t
 from repro_torch.kernels import _backend
 from repro_torch.kernels.interval_step import kernel, ops, ref
+from repro_torch.utils.pytree import take_lanes
 
 
 def _ewma_case(B, n, seed):
@@ -230,19 +231,65 @@ def test_account_kernel_vs_plain(card, machine, B, n, shared):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("B,n", [(2, 37), (3, 4099), (16, 65536)])
 def test_account_kernel_every_cluster_size(card, monkeypatch, B, n,
                                            cluster):
-    """A lane over a forced number of CTAs: slices that end ragged, and
-    CTAs with no page at all (37 pages over 16 CTAs of 4 leave six
-    empty), still equal the plain version."""
+    """A lane over a forced number of CTAs (every divisor of the 16
+    sub-slices): sub-slices that end ragged, and sub-slices with no page
+    at all (37 pages in 16 sub-slices of 4 leave six empty), still equal
+    the plain version."""
     monkeypatch.setitem(_backend.clusters, kernel.cluster_key(
         "account", B, n, torch.cuda.current_device()), cluster)
     for shared in (True, False):
         got, want = _account_on_card(card, "dram-cxl-pmem", B, n, shared)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+def _wide_range_rows(rng, B, n):
+    """f32 rows spanning some 2^46: their f64 sums are not exact, so the
+    order of the additions shows in the bits."""
+    return np.exp(rng.normal(0.0, 8.0, (B, n))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("machine", ["pmem-large", "dram-cxl-pmem"])
+def test_account_lane_bits_independent_of_lane_count(card, monkeypatch,
+                                                     machine):
+    """One lane embedded in batches of 1, 9, 21, 168 and 216 lanes, each
+    at the cluster size its chooser picks, and at every cluster size
+    forced, gives the same bits on rows whose f64 sums are not exact: a
+    lane's row is summed in 16 fixed sub-slices, added in order."""
+    n, Bmax = 65536, 216
+    rng = np.random.default_rng(11)
+    pmach, _, tier, up, down, oracle, k = account_case(Bmax, n, machine, 5)
+    true = _wide_range_rows(rng, Bmax, n)
+    args = [_t(a).to(card) for a in (true, tier, up, down, oracle)]
+    mach = pmach.to(card)
+    lane = 3                                   # the lane held everywhere
+
+    def run(B, at):
+        idx = torch.tensor([b for b in range(Bmax) if b != lane][:B - 1],
+                           dtype=torch.long)
+        idx = torch.cat([idx[:at], torch.tensor([lane]), idx[at:]]).to(card)
+        take = lambda x: x.index_select(0, idx).contiguous()
+        out = ops.interval_account(
+            take_lanes(mach, idx), take(args[0]), take(args[1]),
+            take(args[2]), take(args[3]), take(args[4]), k)
+        return torch.stack([o[at] for o in out]).cpu()
+
+    want = run(1, 0)
+    seen = set()
+    for B in (1, 9, 21, 168, 216):
+        seen.add(kernel.account_cluster(B, n, card))
+        for at in (0, B // 2, B - 1):
+            assert torch.equal(run(B, at), want), (B, at)
+    assert len(seen) > 1                   # the batches span cluster sizes
+    for c in (1, 2, 4, 8, 16):
+        monkeypatch.setitem(_backend.clusters, kernel.cluster_key(
+            "account", 9, n, torch.cuda.current_device()), c)
+        assert torch.equal(run(9, 4), want), c
 
 
 @pytest.mark.cuda

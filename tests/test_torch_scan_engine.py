@@ -10,6 +10,8 @@ timelines exact; exec_time within 1e-4 relative; hot_recall and
 fast_hit_frac within 1e-6.  The per-interval slow share is a ratio of
 access sums that JAX accumulates in f32 and the port rounds once from f64,
 so its timeline is held within 1e-5."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,6 @@ from repro.simulator import scan_engine as jscan
 from repro.simulator import workloads
 from repro.simulator.sampling import uniform_field
 from repro_torch.baselines.arms_policy import ARMSSpec as PSpec
-from repro_torch.baselines.protocol import PolicySpec
 from repro_torch.simulator import scan_engine as pscan
 
 T, N, K = 96, 512, 64
@@ -109,15 +110,23 @@ def test_stream_matches_stack():
         assert b.timeline_mode is None
 
 
-def test_waiting_paths_raise():
+def test_mixed_observation_route_equals_spec():
+    """A spec on the engine's ``mixed_observation`` route (the union
+    fabric's) reads the per-lane hooks, whose defaults are the class's:
+    bit for bit the spec on its own route."""
     trace = _trace("gups")
 
-    class Union(PolicySpec):   # a union-fabric spec mixing observation kinds
-        name = "union"
+    class MixedARMS(PSpec):
         mixed_observation = True
-    with pytest.raises(NotImplementedError):
-        pscan.simulate(Union(), trace, "pmem-large", K,
-                       sample_u=uniform_field(T, N), device="cpu")
+    u = uniform_field(T, N)
+    a = pscan.simulate(MixedARMS.make(), trace, "dram-cxl-pmem", K,
+                       sample_u=u, device="cpu")
+    b = pscan.simulate(PSpec.make(), trace, "dram-cxl-pmem", K, sample_u=u,
+                       device="cpu")
+    assert a.promotions > 0
+    for f in dataclasses.fields(a):
+        assert np.array_equal(np.asarray(getattr(a, f.name)),
+                              np.asarray(getattr(b, f.name))), f.name
 
 
 def test_default_device_is_the_card():

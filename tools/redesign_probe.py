@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times behind the redesign of the port's kernels (``tier_migrate``
-and ``paged_attention``), on one NVIDIA GPU.
+"""Device times behind the redesign of the port's kernels (``tier_migrate``,
+``paged_attention`` and ``interval_account``), on one NVIDIA GPU.
 
     python3 tools/redesign_probe.py [--parent DIR] [--only PHASE ...]
 
@@ -22,7 +22,11 @@ Phases (all by default):
             serving path's fold (1 x 256 query heads over 64 KV heads of 128,
             f32, 32 pages of 16 tokens, page mass on) at positions 15 and 511,
             and the same fold over a table of 2,048 entries (32,768 tokens a
-            sequence) at positions 511 and 32,767;
+            sequence) at positions 511 and 32,767; ``interval_account`` at
+            the sweep's 16 x 65,536 (one row shared by the lanes) on
+            ``pmem-large`` and ``dram-cxl-pmem`` and at the tuning study's
+            216 lanes of their own rows on ``pmem-large``, with a digest
+            of its six outputs likewise;
   clusters  both kernels at 1, 2, 4, 8, 12 and 16 CTAs a cluster, at those
             shapes (``paged_attention`` at position 511, and at 32,767 of
             the 2,048-entry table), each held to the
@@ -154,6 +158,36 @@ def fold_bytes(pos: int, n_pp: int = FOLD["n_pp"]) -> int:
     return 4 * (2 * H * dh + 2 * pages * page * KV * dh + 2 * n_pp + 1)
 
 
+# (lanes, machine, one row shared by the lanes)
+ACCOUNT_SHAPES = ((16, "pmem-large", True), (16, "dram-cxl-pmem", True),
+                  (216, "pmem-large", False))
+
+
+def account_args(lanes: int, machine: str, shared: bool, rng):
+    """``interval_account``'s arguments as the replay gives them: gamma
+    rows (one shared by every lane in trace mode), their top-k oracle,
+    random tiers and migration counts.  -> (args, bytes to move)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.interval_step import ref
+    from repro_torch.simulator import machine_spec, machines
+    spec = machines.get(machine)
+    R = spec.n_tiers
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    rows = 1 if shared else lanes
+    true = f((2e7 / PAGES * rng.gamma(1.0, 1.0, (rows, PAGES)))
+             .astype(np.float32))
+    orc = ref.topk_mask_ref(true, TOP)
+    if shared:
+        true, orc = (x.expand(lanes, PAGES) for x in (true, orc))
+    mach = machine_spec.lane_stack([spec] * lanes, PAGES, TOP, "cuda")[0]
+    args = (mach, true, f(rng.integers(0, R, (lanes, PAGES)).astype(
+        np.int32)), f(rng.integers(0, PLAN, (lanes, R - 1)).astype(
+            np.float32)), f(rng.integers(0, PLAN, (lanes, R - 1)).astype(
+                np.float32)), orc, TOP)
+    return args, rows * PAGES * 5 + lanes * PAGES * 4
+
+
 def digest(ts) -> str:
     h = hashlib.sha256()
     for t in ts:
@@ -182,6 +216,15 @@ def measure(root: Path):
         out["tier_migrate digest"][name] = digest(kernel.tier_migrate(*args))
         out[name] = cs.cuda_ms(kernel.tier_migrate,
                                cs.copies(args, 8 * PAGES * lanes))
+    from repro_torch.kernels.interval_step import ops
+    out["interval_account digest"] = {}
+    for lanes, machine, shared in ACCOUNT_SHAPES:
+        args, bytes_ = account_args(lanes, machine, shared, rng)
+        name = f"interval_account B={lanes} n={PAGES} {machine}"
+        out["interval_account digest"][name] = digest(
+            ops.interval_account(*args))
+        out[name] = cs.cuda_ms(ops.interval_account,
+                               cs.copies(args, bytes_))
     for pos in FOLD_POS:
         args = fold_args(pos, rng)
         out[f"paged_attention fold pos={pos}"] = cs.cuda_ms(
@@ -428,12 +471,14 @@ def main():
             if proc.returncode:
                 raise SystemExit(proc.stderr)
             ab = json.loads(proc.stdout.strip().splitlines()[-1])
-            digests.setdefault(str(tree), ab["tier_migrate digest"])
+            digests.setdefault(str(tree), ab)
         if args.parent is not None:
             this, parent = (digests[str(t.resolve())]
                             for t in (ROOT, args.parent))
-            emit(phase="bits", tier_migrate_equals_parent=this == parent,
-                 this=this, parent=parent)
+            emit(phase="bits", **{
+                f"{nm}_equals_parent": this[f"{nm} digest"]
+                == parent.get(f"{nm} digest")
+                for nm in ("tier_migrate", "interval_account")})
     if "clusters" in args.only:
         clusters()
     if "minblocks" in args.only:
