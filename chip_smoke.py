@@ -21,10 +21,13 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      of their own; the migrations also at TPP's plan widths,
      12 promotions and 8,192 demotions, and the oracle's, 8,192 each,
      lines of their own); the page
-     migration and paged attention at the serving path's full-width
-     shapes (fused K/V pools of 8 fast + 32 home pages of 16 tokens x 8
+     migration and paged attention at the serving paths' full-width
+     shapes (fused K/V pools of 8 fast + 32 home pages of 4 tokens x 8
      sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
-     attention at pos = 511 over 32 pages with 256 folded query heads);
+     attention at pos = 127 over 32 pages with 256 folded query heads); the
+     migration at deepseek-v2-236b's expert slab rows (``wi`` [5120,
+     3072] bf16, 31.5 MB a row; ``wo`` [1536, 5120], 15.7 MB), 8
+     promotions into a fused [8 + 16]-row pool;
      the single-row fused score update at n = 2^20 and 2^24 pages (on no
      path of the main path: its launches here must be nonzero, its JSON
      row's are 0); flash attention forward and backward (bf16 on the
@@ -44,64 +47,90 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      and timed at the study's 216 lanes (TPP's plans at its 144), and one
      lane of the accounting kernel embedded in batches of 1, 9, 21, 168
      and 216 lanes, bit for bit the same (2 and 3 tiers);
-  3. main path, twenty-five paths, each with every launch count set to 0 just
+  3. main path, thirty-seven paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched): ``sweep_arms_configs`` over a 16-lane
      ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
-     k = 8,192, T = 2,048 with the streaming reduction; ``arms_sim`` on
-     the 3-tier ``dram-cxl-pmem`` at T = 1,024, on a GUPS-like trace made
-     with numpy from ``--seed``; then the other policy families at the
-     same width on the first T = 256 intervals of that trace and CRN
+     k = 8,192, T = 1,024 (cut from 2,048) with the streaming
+     reduction; ``arms_sim`` on the 3-tier ``dram-cxl-pmem`` at T = 512
+     (cut from 1,024), on a GUPS-like trace made with numpy from
+     ``--seed``; then the other policy families at the same width on the
+     first T = 128 (cut from 256) intervals of that trace and CRN
      field: ``sweep_policy_configs`` over 16-lane knob grids of HeMem,
      Memtis and TPP on ``pmem-large`` (binary route: ``tier_migrate`` and
      ``interval_account``) and of Jenga and TierBPF (16 lanes) and
      HybridTier (12) on ``dram-cxl-pmem`` (tier-targeted route:
-     ``interval_account``), each sweep's first 128 intervals also under
+     ``interval_account``), each sweep's first 64 intervals also under
      ``torch.profiler`` (busy share), and one ``simulate`` lane each of
      ARMS, HeMem,
      Memtis, TPP, all-slow and the oracle at their defaults on
      ``pmem-large``, each exec time over all-slow's (the paper's Fig. 1
-     normalisation); then the trace-synthesis path at the same width,
-     T = 1,024, the paper's nine workloads synthesized on the card:
+     normalisation), and of HybridTier, Jenga and TierBPF on
+     ``dram-cxl-pmem``; then the numpy reference engine on the same trace
+     and field: ``engine.run`` of ARMS's hand-tuned ``ARMSPolicy``, of
+     ARMS through ``LegacyPolicyAdapter`` and of the other eight families
+     through theirs (binary ones on ``pmem-large``, tier-native ones on
+     ``dram-cxl-pmem``), each held to its family's scan lane (counts and
+     both integer timelines equal, exec time within 1e-4 relative), with
+     its intervals/s and host ms an interval; then the trace-synthesis
+     path at the same width,
+     T = 256 (cut from 1,024), the paper's nine workloads synthesized
+     on the card:
      ``sweep_workload_configs`` of four ARMS configs over the nine (36
-     lanes; its first 128 intervals under the profiler),
+     lanes; its first 64 intervals under the profiler),
      ``sweep_workloads`` of the nine for ARMS, all-slow and the oracle at
      their defaults (each exec time over all-slow's, per workload; HeMem,
      Memtis and TPP at theirs are the tuning study's default rows), the
      adversarial scenario suite under
      ARMS (7 lanes) and ``sweep_seeds`` of ARMS over 16 seeds on the
-     first 1,024 intervals of the trace (PRNG sampling), with the device
+     first 256 intervals of the trace (PRNG sampling), with the device
      time of each kind of threefry draw; then the paper's tuning study:
      ``tuning.tune`` of HeMem (24 configs), Memtis (20) and TPP (16) over
      the nine workloads at the same width and T, one pass of 9 x budget
-     lanes each (the first 128 intervals of each under the profiler, the
+     lanes each (the first 64 intervals of each under the profiler, the
      peak device memory), per workload the best tuned and default exec
      time over all-slow's and untuned ARMS over the best tuned; an ASHA
      search of HeMem's 24 over the nine, ARMS's CE search on the
      ``"pre"`` path and a HeMem transfer matrix over ``pmem-large`` and
-     ``dram-cxl-pmem``, both on the trace's first 256 intervals; then the
-     paper's robustness leaderboard: ONE ``experiment.sweep`` of oracle,
+     ``dram-cxl-pmem``, both on the trace's first 128 intervals; then the
+     paper's robustness leaderboard (T = 256, cut from 1,024): ONE
+     ``experiment.sweep`` of oracle,
      ARMS, HeMem, Memtis, TPP, HybridTier, Jenga and TierBPF over the
      seven scenarios of ``scenarios.suite`` on ``pmem-large``,
-     ``cxl-1hop`` and ``dram-cxl-pmem`` at the same width, T = 1,024
-     (168 lanes), which must run as one union pass of the eight
-     families, with its rate, peak device memory, the busy share of its
-     first 128 intervals and each policy's worst and mean slowdown over
-     the oracle and its thrash; every
+     ``cxl-1hop`` and ``dram-cxl-pmem`` at the same width (168 lanes),
+     which must run as one union pass of the eight families, with its
+     rate, peak device memory, the busy share of its first 64 intervals
+     and each policy's worst and mean slowdown over the oracle and its
+     thrash; every
      cluster configuration launched so far at 65,536 pages must be one the
-     kernel phase held; then ``launch.serve.serve``
-     decoding 512
-     greedy tokens at batch 8 of granite-8b at its full width and depth
-     (36 layers, d_model 4,096, bf16, random weights from the seed) with
-     layer 0's KV pages tiered by ARMS; then ``launch.train.train``
+     kernel phase held; then ``launch.serve.serve`` decoding 128 greedy
+     tokens (cut from 512) at batch 8 of granite-8b at its full width and
+     depth (36 layers, d_model 4,096, bf16, random weights from the seed,
+     made once and passed to every serve run) with layer 0's KV pages
+     (32 of 4 tokens, 8 fast) tiered by ARMS and ``capture=True`` (the
+     trace held to the rows it served: one interval a 4 tokens, each
+     holding 4 x batch x heads of attention mass); sparse attention on
+     its final paged KV against full paged attention (every head's gap
+     within twice its skipped mass times max |v|); ``serve`` of the other
+     eight families the same way, each under PyTorch's sync debug mode (tok/s,
+     promotions/demotions, thrash, modeled slowdown, host syncs); the
+     expert tier of deepseek-v2-236b's 160 routed experts of one MoE
+     layer (47.2 MB bf16 slabs, 32 fast, ARMS; 256 steps of top-6 router
+     load over 8 x 512 tokens, Zipf(1.1) over a seeded permutation,
+     numpy from the seed), its ``effective_weights`` bit for bit the home
+     slabs, and the embedding tier of llama4-scout's table (202,048 x
+     5,120 bf16, 790 blocks of 256 rows, 79 fast; 256 lookups of 8 x
+     4,096 Zipf(1.1) ids), steps/s, lookups/s, hit fraction and peak
+     memory; then ``launch.train.train``
      taking 6 AdamW steps of stablelm-1.6b at its full width and depth
      (24 layers, d_model 2,048, bf16, random weights from the seed) at
      batch 2 x 4,096 tokens (losses finite; the first batch's loss
      through the kernels within 1e-6 of the run's first loss and within
      1e-2 of the loss with the plain attention); ``torch.profiler``
      windows give the device busy share and device time by kernel (the
-     twelve largest and each of the port's) of the sweep, of 32 serving
-     tokens (with the device ms a token) and of one training step, CUDA
+     twelve largest and each of the port's) of the sweep, of 16 serving
+     tokens (with the device ms a token; 32 tokens under CUDA events
+     before it) and of one training step, CUDA
      events split a serving token into model decode and tiered layer and
      a training step into forward, backward and optimizer; then
      mamba2-370m at its full width and depth (48 layers, d_model 1,024,
@@ -120,7 +149,9 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      exact, exec_time within 1e-4 relative), for ARMS and for each other
      policy family (4 lanes of its grid, k = 1,536), and on the card
      ``tier_shim=True`` bit for bit the hop-chain route for the six binary
-     families; the threefry keys, splits, rows and permutations on the
+     families; ``engine.run`` of the ten reference-engine policies on the
+     card and on the CPU at n = 4,096, T = 96 (counts and timelines
+     exact); the threefry keys, splits, rows and permutations on the
      card and on the CPU (bit for bit, n up to 65,536), a synthesized
      4-workload x 2-config ARMS sweep at n = 4,096, T = 256 on both
      (counts exact, exec_time within 1e-4 relative), and on the card a
@@ -131,9 +162,9 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      board's union pass at full width and T = 256 bit for bit its grouped
      passes, at n = 4,096 card == CPU, and there padded to a multiple of
      5 lanes on a mesh of 1 bit for bit the plain pass; the serving loop
-     at reduced
-     granite-8b (48 tokens, batch 2, pages of 8) on the card and on the
-     CPU with the same weights and streams (plans, residency, slots and
+     at reduced granite-8b (48 tokens, batch 2, pages of 8) under each of
+     the nine registry families on the card and on the CPU with the same
+     weights and streams (plans, residency, slots and
      tokens exact; attention mass, fast-mass share and pools within 1e-5);
      three train steps of reduced stablelm-1.6b, granite-8b and
      mamba2-370m (f32, batch 2, seq 40) on the card and on the CPU from
@@ -181,8 +212,9 @@ from repro_torch.kernels.mamba_scan import ref as sref  # noqa: E402
 from repro_torch.kernels.score_update import (  # noqa: E402
     kernel as ukernel)
 from repro_torch.baselines import (hemem, hybridtier, jenga,  # noqa: E402
-                                   memtis, static, tierbpf, tpp)
-from repro_torch.baselines.arms_policy import ARMSSpec  # noqa: E402
+                                   memtis, protocol, static, tierbpf, tpp)
+from repro_torch.baselines.arms_policy import (ARMSPolicy,  # noqa: E402
+                                               ARMSSpec)
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
@@ -190,10 +222,15 @@ from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import mamba2 as Mb  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.simulator import (experiment, machine_spec,  # noqa: E402
-                                   machines, scan_engine, scenarios, search,
-                                   tuning, workload_spec)
+from repro_torch.simulator import (engine, experiment,  # noqa: E402
+                                   machine_spec, machines, scan_engine,
+                                   scenarios, search, tuning, workload_spec)
+from repro_torch.tiering import embedding_tiering as ET  # noqa: E402
+from repro_torch.tiering import expert_tiering as XT  # noqa: E402
 from repro_torch.tiering import paged_kv as PK  # noqa: E402
+from repro_torch.tiering import tiered_pool as TP  # noqa: E402
+from repro_torch.tiering.sparse_attention import (  # noqa: E402
+    sparse_attention_step)
 from repro_torch.simulator.engine import SimResult  # noqa: E402
 from repro_torch.simulator.sampling import (  # noqa: E402
     synth_noise_field, uniform_field)
@@ -207,8 +244,10 @@ L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # T: the ARMS sweep's intervals, cut from 4,096 with the SSM decode's
-# tokens (256 -> 128) to pay for the robustness board: under 700 s
-B, N, K, T = 16, 65536, 8192, 2048
+# tokens (256 -> 128) to pay for the robustness board, then from 2,048
+# with the serve breakdown's windows (64 + 32 -> 32 + 16 tokens) for the
+# reference engine, the other families' serving and the tiers: under 700 s
+B, N, K, T = 16, 65536, 8192, 1024
 PLAN = 64                      # ARMSConfig.bs_max: promote/demote widths
 # kernel -> (its CUDA source, the TPU kernel it replaces as file:line)
 ROUTES = {
@@ -452,6 +491,7 @@ def kernel_phase(dev, rng):
     held = study_rows(entry, f, rng, dev, syn)
     account_lane_rows(f, rng, dev)
     serving_rows(entry, f, rng)
+    slab_rows(entry, rng, dev)
     score_rows(rows, entry, f, rng)
     flash_rows(rows, rng)
     mamba_rows(rows, rng)
@@ -694,9 +734,10 @@ def score_rows(rows, entry, f, rng):
           f"on no path of the main path", flush=True)
 
 
-# the serving path at granite-8b's full width: 32 pages of 16 tokens x 8
-# sequences x 8 KV heads x 128 (f32, 512 KiB a page), 8 of them fast
-PF, NP, PG, SB, SH, SKV, DH = 8, 32, 16, 8, 32, 8, 128
+# the serving paths at granite-8b's full width: 32 pages of 4 tokens (128
+# tokens a run) x 8 sequences x 8 KV heads x 128 (f32, 128 KiB a page), 8
+# of them fast
+PF, NP, PG, SB, SH, SKV, DH = 8, 32, 4, 8, 32, 8, 128
 
 
 def serving_rows(entry, f, rng):
@@ -765,6 +806,39 @@ def serving_rows(entry, f, rng):
           lambda *a: pref.paged_attention_ref(*a, page_mass=True), args,
           False, nbytes(q) * 2 + 2 * NP * PG * KV * DH * 4 + 4 * NP + 4
           + 4 * NP, 4 * H * NP * PG * DH, (sdpa, gathered), abs_tol=1e-5)
+
+
+# deepseek-v2-236b's routed experts at published widths (d_model 5,120,
+# expert d_ff 1,536, bf16): a promotion copies a home slab into a fast
+# slot of the fused pools, one launch a weight (``wi`` rows [5120, 3072],
+# 31.5 MB; ``wo`` rows [1536, 5120], 15.7 MB)
+SLAB_FAST, SLAB_HOME, SLAB_MOVES = 8, 16, 8
+
+
+def slab_rows(entry, rng, dev):
+    cfg = registry.get_arch("deepseek-v2-236b")
+    D, F = cfg.d_model, cfg.moe_d_ff
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    idx = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    for nm, row in (("wi", (D, 2 * F)), ("wo", (F, D))):
+        pool = torch.randn((SLAB_FAST + SLAB_HOME,) + row, generator=g,
+                           device=dev, dtype=torch.bfloat16)
+        home = rng.choice(SLAB_HOME, SLAB_MOVES, replace=False)
+        args = (pool, idx(SLAB_FAST + home),
+                idx(rng.permutation(SLAB_FAST)[:SLAB_MOVES]),
+                torch.ones(SLAB_MOVES, dtype=torch.bool, device=dev))
+        row_bytes = pool[0].numel() * 2
+        entry("migrate", f"expert slabs: {nm} pool [{SLAB_FAST + SLAB_HOME}, "
+              f"{row[0]}, {row[1]}] bf16 ({row_bytes / 1e6:.1f} MB a row, "
+              f"{-(-row_bytes // 32768)} chunks), {SLAB_MOVES} promotions",
+              lambda p, si, di, ok: mkernel.migrate([p], [p], si, di, ok)[0],
+              lambda p, si, di, ok: mref.migrate_ref(p, p, si, di, ok),
+              args, True, 2 * SLAB_MOVES * row_bytes + 9 * SLAB_MOVES, 0,
+              lambda p, si, di, ok: p.index_copy_(
+                  0, di.long(), p.index_select(0, si.long())),
+              fresh=lambda a: (a[0].clone(),) + a[1:])
+        del pool, args
+        torch.cuda.empty_cache()
 
 
 # flash attention rows: (label, B, S, H, KV, dh, causal, window, dtype);
@@ -1172,7 +1246,7 @@ def main_path(seed: int, held: set):
           f"promotions={s['promotions']} demotions={s['demotions']} "
           f"wasteful={s['wasteful']} launches={sweep_counts}", flush=True)
 
-    T2 = 1024
+    T2 = 512   # cut from 1,024 with the ARMS serve (512 -> 128 tokens)
     r, wall2, sim_counts = counted(
         "arms_sim", lambda: scan_engine.arms_sim(
             trace[:T2], "dram-cxl-pmem", K, sample_u=u[:T2]))
@@ -1189,8 +1263,10 @@ def main_path(seed: int, held: set):
                  trace[:256], "pmem-large", K, GRID, sample_u=u[:256],
                  reduce="stream"))
     stamp("main path sweep, arms_sim and profile")
-    fams = policy_paths(trace[:T_POL], u[:T_POL])
+    fams, defaults = policy_paths(trace[:T_POL], u[:T_POL])
     stamp("main path policy families")
+    eng = engine_paths(trace[:T_POL], u[:T_POL], defaults)
+    stamp("main path reference engine")
     synth, comparison = synth_paths(trace[:T_SYN], seed)
     stamp("main path synthesis")
     tuned = tuning_paths(trace[:T_POL], seed, comparison)
@@ -1199,23 +1275,42 @@ def main_path(seed: int, held: set):
     stamp("main path board")
     check_held_clusters("main path", held)
 
-    rep, wall3, serve_counts = counted("serve", lambda: serve.serve(
-        "granite-8b", n_tokens=SERVE_TOKENS, batch=SB, full=True, seed=seed,
-        quiet=True), SERVE_KERNELS)
+    # granite-8b's weights at full width, made once from the seed (the
+    # generator ``serve.setup`` would use) and passed to every serve run
+    t0 = time.time()
+    params = M.init_params(registry.get_arch("granite-8b"),
+                           torch.Generator(device="cuda").manual_seed(seed),
+                           "cuda")
+    torch.cuda.synchronize()
+    print(f"main path serve: granite-8b weights made in "
+          f"{time.time() - t0:.3f}s", flush=True)
+    (rep, syncs), wall3, serve_counts = counted("serve", lambda: synced(
+        lambda: serve.serve(
+            "granite-8b", n_tokens=SERVE_TOKENS, batch=SB, full=True,
+            seed=seed, page_size=PG, capture=True, quiet=True,
+            params=params)), SERVE_KERNELS)
     require(rep.fast_mass.shape == (SERVE_TOKENS,)
             and bool(np.isfinite(rep.fast_mass).all())
             and np.isfinite(rep.slowdown) and rep.promotions > 0,
             "serve: non-finite telemetry or no promotions")
     print(f"main path serve granite-8b full: tokens={SERVE_TOKENS} "
-          f"batch={SB} wall_s={wall3:.3f} init_s={rep.init_s:.3f} "
+          f"batch={SB} pages={NP} of {PG} wall_s={wall3:.3f} "
+          f"init_s={rep.init_s:.3f} "
           f"decode_s={SERVE_TOKENS * SB / rep.tok_s:.3f} "
           f"tok_s={rep.tok_s:.1f} promotions={rep.promotions} "
           f"demotions={rep.demotions} thrash={rep.thrash:.4f} "
           f"slowdown={rep.slowdown:.4f} fast_mass_end={rep.fast_mass[-1]:.4f} "
-          f"launches={serve_counts}", flush=True)
+          f"host_syncs_run={syncs} launches={serve_counts}", flush=True)
+    capture_check(rep)
+    sparse_check(rep, seed)
     del rep
-    serve_breakdown(seed)
+    families = serve_families(seed, params)
+    serve_breakdown(seed, params)
+    del params
+    torch.cuda.empty_cache()
     stamp("main path serve")
+    tiers = tier_paths(seed)
+    stamp("main path expert and embedding tiers")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1258,17 +1353,21 @@ def main_path(seed: int, held: set):
     paths = ssm_paths(seed)
     ssm_consistency(seed)
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
-            **fams, **synth, **tuned, **board, "serve": serve_counts,
-            "train": train_counts, "train_ssm": ssm_counts, **paths}
+            **fams, **eng, **synth, **tuned, **board, "serve": serve_counts,
+            **families, **tiers, "train": train_counts,
+            "train_ssm": ssm_counts, **paths}
 
 
 # the other policy families: knob grids of 16 lanes (12 for HybridTier) on
 # the binary route (2-tier pmem-large) and the tier-targeted route (3-tier
 # dram-cxl-pmem), at T_POL intervals of the main path's trace and CRN field
-T_POL = 256    # cut from 2,048, then from 1,024 (730 s with the build on
+T_POL = 128    # cut from 2,048, then from 1,024 (730 s with the build on
 #                an H100), then from 512 for the robustness board (its
-#                path and check about 170 s): the whole script under 700 s
-T_PROF = 128   # intervals of each family, synthesis and tuning profile window
+#                path and check about 170 s), then from 256 for the
+#                reference engine, the other families' serving and the
+#                tiers (736.7 s): the whole script under 700 s
+T_PROF = 64    # intervals of each family, synthesis, tuning and board
+#                profile window (128 to the same cut)
 BINARY_KERNELS = ("tier_migrate", "interval_account")
 TIER_KERNELS = ("interval_account",)
 grid = lambda a, av, b, bv: [{a: x, b: y} for x in av for y in bv]
@@ -1302,7 +1401,7 @@ def policy_paths(trace, u) -> dict:
     """The other policy families at the main path's width: a knob-grid
     ``sweep_policy_configs`` of each, then the six binary families at
     their defaults (``simulate``), each exec time over all-slow's.
-    -> {path: launch counts}."""
+    -> ({path: launch counts}, {family: the default run})."""
     T_, n = trace.shape
     counts = {}
     for fam, mname, make, cfgs in POLICY_SWEEPS:
@@ -1355,12 +1454,102 @@ def policy_paths(trace, u) -> dict:
               flush=True)
     print(f"main path families: wall_s={wall:.3f} launches="
           f"{counts['families']}", flush=True)
+    return counts, res
+
+
+# the numpy reference engine at the main path's width: ARMS's hand-tuned
+# wrapper, ARMS through the generic adapter and the other eight families
+# through theirs, on the trace and CRN field of the family paths; each
+# held to the scan engine's lane of its family on the same field
+ENGINE_POLICIES = (
+    ("ARMSPolicy", ARMSPolicy, "pmem-large", "arms"),
+    ("arms-adapter", lambda: protocol.LegacyPolicyAdapter(ARMSSpec.make()),
+     "pmem-large", "arms"),
+    ("hemem", hemem.HeMemPolicy, "pmem-large", "hemem"),
+    ("memtis", memtis.MemtisPolicy, "pmem-large", "memtis"),
+    ("tpp", tpp.TPPPolicy, "pmem-large", "tpp"),
+    ("all-slow", static.AllSlowPolicy, "pmem-large", "all-slow"),
+    ("oracle", static.OraclePolicy, "pmem-large", "oracle"),
+    ("hybridtier", hybridtier.HybridTierPolicy, "dram-cxl-pmem",
+     "hybridtier"),
+    ("jenga", jenga.JengaPolicy, "dram-cxl-pmem", "jenga"),
+    ("tierbpf", tierbpf.TierBPFPolicy, "dram-cxl-pmem", "tierbpf"))
+TIER_DEFAULTS = (("hybridtier", hybridtier.HybridTierSpec.make),
+                 ("jenga", jenga.JengaSpec.make),
+                 ("tierbpf", tierbpf.TierBPFSpec.make))
+ENGINE_KERNELS = ("ewma_update", "topk_mask", "interval_account")
+
+
+def engine_paths(trace, u, scan: dict) -> dict:
+    """``engine.run`` of each of ``ENGINE_POLICIES`` (binary families on
+    ``pmem-large``, tier-native ones on ``dram-cxl-pmem``), after the
+    tier-native families' own scan lanes at their defaults on the same
+    field (``scan`` holds the binary families' from ``policy_paths``).
+    Gate: counts, ``timeline_promotions`` and ``timeline_mode`` equal to
+    the scan lane's, exec time within 1e-4 relative; whether the slow-share
+    timeline (the accounting op's output in both engines) is bit for bit
+    the scan lane's is printed.  -> {path: launch counts}."""
+    T_, n = trace.shape
+    counts = {}
+    tiered, wall, counts["families_tiered"] = counted(
+        "families_tiered", lambda: {
+            fam: scan_engine.simulate(make(), trace, "dram-cxl-pmem", K,
+                                      sample_u=u)
+            for fam, make in TIER_DEFAULTS}, TIER_KERNELS)
+    require(all(np.isfinite(r.exec_time_s) for r in tiered.values())
+            and sum(r.promotions for r in tiered.values()) > 0,
+            "tier-native scan lanes: exec time not finite or no promotion")
+    for fam, r in tiered.items():
+        print(f"main path families dram-cxl-pmem {fam}: T={T_} n={n} k={K} "
+              f"exec_time_s={r.exec_time_s:.6f} promotions={r.promotions} "
+              f"demotions={r.demotions} wasteful={r.wasteful}", flush=True)
+    print(f"main path families_tiered: wall_s={wall:.3f} launches="
+          f"{counts['families_tiered']}", flush=True)
+    scan = dict(scan, **tiered)
+    walls = {}
+
+    def run_all():
+        out = {}
+        for label, make, mname, _ in ENGINE_POLICIES:
+            t0 = time.time()
+            out[label] = engine.run(make(), trace, mname, K, sample_u=u)
+            walls[label] = time.time() - t0
+        return out
+
+    res, wall, counts["engine"] = counted("engine", run_all, ENGINE_KERNELS)
+    for label, _, mname, fam in ENGINE_POLICIES:
+        a, b = res[label], scan[fam]
+        require((a.promotions, a.demotions, a.wasteful)
+                == (b.promotions, b.demotions, b.wasteful)
+                and np.array_equal(a.timeline_promotions,
+                                   b.timeline_promotions)
+                and np.array_equal(a.timeline_mode, b.timeline_mode),
+                f"engine {label}: counts {a.promotions}/{a.demotions}/"
+                f"{a.wasteful} != scan {b.promotions}/{b.demotions}/"
+                f"{b.wasteful} or timelines differ")
+        rel = abs(a.exec_time_s - b.exec_time_s) / abs(b.exec_time_s)
+        require(rel <= 1e-4, f"engine {label}: exec_time rel {rel}")
+        print(f"main path engine {label} {mname}: T={T_} n={n} k={K} "
+              f"wall_s={walls[label]:.3f} "
+              f"intervals_per_s={T_ / walls[label]:.1f} "
+              f"host_ms_per_interval={walls[label] * 1e3 / T_:.3f} "
+              f"promotions={a.promotions} demotions={a.demotions} "
+              f"wasteful={a.wasteful} exec_time_s={a.exec_time_s:.9f} "
+              f"scan_exec_time_s={b.exec_time_s:.9f} exec_rel={rel:.3e} "
+              f"slow_bw_timeline_bits_equal="
+              f"{np.array_equal(a.timeline_slow_bw, b.timeline_slow_bw)} "
+              f"hot_recall={a.hot_recall:.6f} scan_hot_recall="
+              f"{b.hot_recall:.6f}", flush=True)
+    print(f"main path engine: wall_s={wall:.3f} launches={counts['engine']}",
+          flush=True)
     return counts
 
 
 # the trace-synthesis path: the paper's nine workloads and the scenario
 # suite synthesized on the card at the main path's width, T_SYN intervals
-T_SYN = 1024
+T_SYN = 256    # cut from 1,024, then 512, 384 (synthesis and tuning) for
+#                the reference engine, the other families' serving and the
+#                tiers
 SYN_CONFIGS = [dict(alpha_s=a, noise_z=z) for a, z in ((0.5, 0.0), (0.7, 0.0),
                                                       (0.5, 0.5), (0.7, 0.5))]
 SEEDS = 16     # lanes of sweep_seeds
@@ -1370,7 +1559,7 @@ T_REF = 128    # intervals of the synthesis-against-reference comparison
 def synth_paths(trace, seed: int) -> dict:
     """The trace-synthesis entry points at n = 65,536, k = 8,192 on
     ``pmem-large``: ``sweep_workload_configs`` of four ARMS configs over
-    the nine named workloads (36 lanes; its first 128 intervals also under
+    the nine named workloads (36 lanes; its first 64 intervals also under
     the profiler), ``sweep_workloads`` of the nine for ARMS, all-slow and
     the oracle at their defaults (exec time over all-slow's per workload;
     the tuning study's workloads and noise), the
@@ -1726,7 +1915,7 @@ def tuning_paths(trace, seed: int, comparison) -> dict:
 BOARD_POLICIES = ("oracle", "arms", "hemem", "memtis", "tpp", "hybridtier",
                   "jenga", "tierbpf")
 BOARD_MACHINES = ("pmem-large", "cxl-1hop", "dram-cxl-pmem")
-T_BOARD = 1024
+T_BOARD = 256   # cut from 1,024, then 512, for the same paths
 BOARD_KERNELS = ("ewma_update", "topk_mask", "interval_account")
 
 
@@ -1769,7 +1958,7 @@ def board_paths(seed: int) -> dict:
     1,024, ``sim_seed`` and ``wl_seed`` the seed: 168 lanes in ONE union
     pass (``dispatch="union"``, ``families=8``), its lane-intervals/s
     over its wall (set-up included), peak device memory, the busy share
-    of its first 128 intervals and each policy's worst and mean slowdown
+    of its first 64 intervals and each policy's worst and mean slowdown
     over the oracle and its thrash.  -> {path: launch counts}."""
     lanes = len(BOARD_POLICIES) * len(scenarios.suite(N, K)) \
         * len(BOARD_MACHINES)
@@ -2109,10 +2298,251 @@ def ssm_consistency(seed: int, T_: int = 128, tol: float = 1e-2):
     torch.cuda.empty_cache()
 
 
-SERVE_TOKENS = 512
+SERVE_TOKENS = 128   # every family's run (ARMS's cut from 512, pages of
+#                     16 -> 4, for this slice's new paths: under 700 s)
 
 
-def serve_breakdown(seed: int, T_: int = 64, T_prof: int = 32):
+def synced(run):
+    """``run()`` under PyTorch's sync debug mode: -> (its result, the host
+    syncs it made)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def capture_check(rep):
+    """The ARMS run's ``--capture`` trace against the access rows it
+    served: one interval a ``policy_every`` tokens over the run's pages,
+    and each served row's attention mass sums to batch x heads (a softmax
+    a query head), so each interval holds ``policy_every`` times that."""
+    tr, n = rep.trace, rep.kv.in_fast.shape[0]
+    group = tr.meta["group"]
+    require(tr.meta["steps"] == SERVE_TOKENS and tr.n == n
+            and tr.T == -(-SERVE_TOKENS // group),
+            f"capture: trace [{tr.T}x{tr.n}] of {tr.meta['steps']} steps")
+    per_token = SB * SH
+    want = np.full(tr.T, float(group * per_token))
+    want[-1] = (SERVE_TOKENS - group * (tr.T - 1)) * per_token
+    err = float(np.abs(tr.counts.sum(axis=1) / want - 1.0).max())
+    require(err <= 1e-4 and bool((tr.counts >= 0).all()),
+            f"capture: interval mass off by {err}")
+    print(f"serve capture: trace [{tr.T}x{tr.n}] from {SERVE_TOKENS} "
+          f"served rows grouped by {group}; each interval's mass "
+          f"{group} x {per_token} within {err:.2e}", flush=True)
+
+
+def sparse_check(rep, seed: int):
+    """Sparse attention on the ARMS run's final paged KV against full
+    paged attention (the kernel) at its last position.  For each query
+    head, full attention is ``(1 - m) o_att + m o_skip`` with ``m`` the
+    head's softmax mass on the skipped pages, so the gap is ``m |o_att -
+    o_skip|``.  Gate: every head's gap at most ``2 m max|v|`` (+1e-5),
+    ``m`` from a plain f64 softmax over the gathered pages.  Also printed:
+    the JAX test's ratio (gap over the largest output entry against the
+    skipped share of the summed mass), a bound its skewed decode meets and
+    these random streams need not."""
+    kv = rep.kv
+    n = kv.in_fast.shape[0]
+    cfg = PK.PagedKVConfig(page_size=PG, n_pages=n, fast_pages=kv.fast_pages,
+                           policy_every=4)
+    q = torch.randn((SB, SH, DH), generator=torch.Generator().manual_seed(
+        seed + 7)).cuda()
+    pos = SERVE_TOKENS - 1
+    full, mass = PK.paged_attention_step(kv, q, pos, cfg)
+    sparse, _, frac = sparse_attention_step(kv, q, pos, cfg)
+    page = torch.arange(n, device=q.device)
+    attended = (kv.in_fast | ((page >= pos // PG - 1) & (page <= pos // PG))
+                | (page == 0))
+    # each head's skipped softmax mass, plain f64 over the gathered pages
+    k, v = (x.double() for x in PK.gather_kv(kv))      # [n, PG, B, KV, dh]
+    rep_h = SH // SKV
+    s_ = torch.einsum("bkrd,npbkd->bkrnp", q.double().view(SB, SKV, rep_h,
+                                                           DH), k)
+    s_ = s_.reshape(SB, SKV, rep_h, n * PG) / DH ** 0.5
+    s_[..., pos + 1:] = float("-inf")
+    p_ = torch.softmax(s_, dim=-1).view(SB, SKV, rep_h, n, PG).sum(-1)
+    m = p_[..., ~attended].sum(-1).reshape(SB, SH)
+    gap = (sparse - full).abs().amax(-1)                    # [B, H]
+    vmax = float(v.abs().max())
+    worst = float((gap - 2 * m * vmax).max())
+    ratio = float((sparse - full).abs().max() / full.abs().max())
+    skipped = float(mass[~attended].sum() / mass.sum())
+    require(float(frac) < 1.0 and worst <= 1e-5,
+            f"sparse attention: a head's gap exceeds 2 m max|v| by {worst}")
+    print(f"sparse attention: {int(attended.sum())} of {n} pages attended "
+          f"(frac {float(frac):.4f}); every head's gap within 2 m max|v| "
+          f"(largest gap {float(gap.max()):.4e}, largest m "
+          f"{float(m.max()):.4f}, max|v| {vmax:.4f}); the JAX test's "
+          f"ratio: gap {ratio:.4f} of the largest output entry, skipped "
+          f"mass share {skipped:.4f}", flush=True)
+
+
+def serve_families(seed: int, params) -> dict:
+    """``serve`` of granite-8b at full width (``params``) under each other
+    registry family, batch 8, SERVE_TOKENS tokens in pages of PG (32
+    pages, 8 fast), each under the sync debug mode.
+    -> {path: launch counts}."""
+    counts = {}
+    for fam in sorted(experiment.POLICY_REGISTRY):
+        if fam == "arms":
+            continue
+        kernels = (("paged_attention",)
+                   + (() if fam == "all-slow" else ("migrate",))
+                   + (("topk_mask",) if fam == "oracle" else ()))
+        (rep, syncs), wall, counts[f"serve_{fam}"] = counted(
+            f"serve_{fam}", lambda: synced(lambda: serve.serve(
+                "granite-8b", n_tokens=SERVE_TOKENS, batch=SB, full=True,
+                seed=seed, page_size=PG, policy=fam, quiet=True,
+                params=params)), kernels)
+        require(rep.fast_mass.shape == (SERVE_TOKENS,)
+                and bool(np.isfinite(rep.fast_mass).all())
+                and np.isfinite(rep.slowdown)
+                and rep.kv.in_fast.shape[0] == NP
+                and rep.kv.fast_pages == PF,
+                f"serve {fam}: non-finite telemetry or pool shape")
+        require((rep.promotions > 0) == (fam != "all-slow"),
+                f"serve {fam}: {rep.promotions} promotions")
+        print(f"main path serve_{fam} granite-8b full: "
+              f"tokens={SERVE_TOKENS} batch={SB} pages={NP} of "
+              f"{PG} wall_s={wall:.3f} tok_s={rep.tok_s:.1f} "
+              f"promotions={rep.promotions} demotions={rep.demotions} "
+              f"thrash={rep.thrash:.4f} slowdown={rep.slowdown:.4f} "
+              f"host_syncs_run={syncs} "
+              f"host_syncs_per_token={syncs / SERVE_TOKENS:.4f} "
+              f"launches={counts[f'serve_{fam}']}", flush=True)
+        del rep
+    return counts
+
+
+# the expert tier: deepseek-v2-236b's 160 routed experts of one MoE layer
+# (d_model 5,120, expert d_ff 1,536, bf16: 47.2 MB a slab, 7.55 GB of
+# home slabs), 32 fast; top-6 router load over 8 x 512 tokens a step
+EXPERT_STEPS, EXPERT_TOKENS, EXPERT_FAST = 256, 8 * 512, 32
+# the embedding tier: llama4-scout's table (202,048 x 5,120 bf16, 790
+# blocks of 256 rows), 79 blocks fast; lookups of 8 x 4,096 ids
+EMBED_LOOKUPS, EMBED_IDS, EMBED_FAST = 256, (8, 4096), 79
+ZIPF_S = 1.1
+
+
+def router_loads(rng, E: int, top: int) -> np.ndarray:
+    """[EXPERT_STEPS, E] f32 tokens routed to each expert a step: each
+    token picks ``top`` distinct experts with weights Zipf(1.1) over a
+    seeded permutation of the experts (Gumbel top-k)."""
+    logw = np.empty(E)
+    logw[rng.permutation(E)] = -ZIPF_S * np.log(np.arange(1, E + 1))
+    loads = np.empty((EXPERT_STEPS, E), np.float32)
+    for s in range(EXPERT_STEPS):
+        key = logw + rng.gumbel(size=(EXPERT_TOKENS, E))
+        pick = np.argpartition(-key, top, axis=1)[:, :top]
+        loads[s] = np.bincount(pick.ravel(), minlength=E)
+    return loads
+
+
+def zipf_ids(rng, V: int, shape) -> np.ndarray:
+    """i32 ids, Zipf(1.1) over a seeded permutation of the vocabulary."""
+    cdf = np.cumsum(np.arange(1, V + 1, dtype=np.float64) ** -ZIPF_S)
+    rank = np.searchsorted(cdf / cdf[-1], rng.random(shape), side="right")
+    return rng.permutation(V)[np.minimum(rank, V - 1)].astype(np.int32)
+
+
+def tier_paths(seed: int) -> dict:
+    """The expert and embedding tiers at published widths, ARMS placing.
+    Gate: every expert's ``effective_weights`` bit for bit its home slab.
+    -> {path: launch counts}."""
+    rng = np.random.default_rng(seed + 11)
+    counts = {}
+    cfg = registry.get_arch("deepseek-v2-236b")
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    t0 = time.time()
+    loads = torch.from_numpy(router_loads(rng, E, cfg.experts_per_token))
+    loads = loads.cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    wi = torch.randn((E, D, 2 * F), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    wo = torch.randn((E, F, D), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    xcfg = XT.ExpertTierConfig(n_experts=E, fast_experts=EXPERT_FAST)
+    tier = XT.init_expert_tier(xcfg, wi, wo)
+    del wi, wo
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+
+    def experts():
+        t = tier
+        for s in range(EXPERT_STEPS):
+            t, _ = XT.observe_and_policy(t, loads[s], xcfg)
+        return t
+
+    tier, wall, counts["experts"] = counted(
+        "experts", experts, ("ewma_update", "topk_mask", "migrate"))
+    tele = TP.telemetry(tier.pool)
+    wi_eff, wo_eff = XT.effective_weights(tier)
+    require(torch.equal(wi_eff, tier.wi_slow)
+            and torch.equal(wo_eff, tier.wo_slow),
+            "experts: effective weights differ from the home slabs")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(tele["promotions"] > 0 and tele["fast_resident"] <= EXPERT_FAST,
+            f"experts: {tele}")
+    print(f"main path experts deepseek-v2-236b: experts={E} fast="
+          f"{EXPERT_FAST} slab_mb={XT.expert_slab_bytes(tier) / 1e6:.1f} "
+          f"home_gb={E * XT.expert_slab_bytes(tier) / 1e9:.2f} "
+          f"steps={EXPERT_STEPS} tokens_per_step={EXPERT_TOKENS} "
+          f"top={cfg.experts_per_token} setup_s={setup_s:.3f} "
+          f"wall_s={wall:.3f} steps_per_s={EXPERT_STEPS / wall:.1f} "
+          f"promotions={tele['promotions']} demotions={tele['demotions']} "
+          f"thrash={tele['thrash']:.4f} slowdown={tele['slowdown']:.4f} "
+          f"fast_resident={tele['fast_resident']} "
+          f"peak_device_memory_gib={peak:.2f} effective_weights=home bit "
+          f"for bit launches={counts['experts']}", flush=True)
+    del tier, wi_eff, wo_eff, loads
+    torch.cuda.empty_cache()
+
+    cfg = registry.get_arch("llama4-scout")
+    V, D = cfg.vocab_size_raw, cfg.d_model
+    t0 = time.time()
+    ids = torch.from_numpy(zipf_ids(rng, V, (EMBED_LOOKUPS,) + EMBED_IDS))
+    ids = ids.cuda()
+    ecfg = ET.EmbedTierConfig(vocab=V, fast_blocks=EMBED_FAST)
+    emb_tier = ET.init_embed_tier(ecfg, torch.randn(
+        (V, D), generator=g, device="cuda", dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+
+    def lookups():
+        t, hits = emb_tier, []
+        for s in range(EMBED_LOOKUPS):
+            _, hit, t = ET.lookup(t, ids[s], ecfg)
+            t, _ = ET.policy(t, ecfg)
+            hits.append(hit)
+        return t, torch.stack(hits).cpu().numpy()
+
+    (emb_tier, hits), wall, counts["embeddings"] = counted(
+        "embeddings", lookups, ("ewma_update", "topk_mask"))
+    tele = TP.telemetry(emb_tier.pool)
+    require(bool(np.isfinite(hits).all()) and tele["promotions"] > 0,
+            f"embeddings: hits {hits[-4:]}, {tele}")
+    print(f"main path embeddings llama4-scout: vocab={V} d={D} "
+          f"table_gb={V * D * 2 / 1e9:.2f} blocks={ecfg.n_blocks} "
+          f"fast={EMBED_FAST} lookups={EMBED_LOOKUPS} ids_per_lookup="
+          f"{EMBED_IDS[0] * EMBED_IDS[1]} setup_s={setup_s:.3f} "
+          f"wall_s={wall:.3f} lookups_per_s={EMBED_LOOKUPS / wall:.1f} "
+          f"hit_frac_mean={hits.mean():.4f} hit_frac_last={hits[-1]:.4f} "
+          f"promotions={tele['promotions']} demotions={tele['demotions']} "
+          f"launches={counts['embeddings']}", flush=True)
+    del emb_tier, ids
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_breakdown(seed: int, params, T_: int = 32, T_prof: int = 16):
     """Where a full-width serving token's time goes: CUDA events around
     the model decode and the tiered layer over ``T_`` tokens (device
     timeline, host gaps included) with PyTorch's sync debug mode counting
@@ -2121,7 +2551,8 @@ def serve_breakdown(seed: int, T_: int = 64, T_prof: int = 32):
     from torch.profiler import ProfilerActivity, profile
     t0 = time.time()
     cfg, params, pk_cfg, kv, cache, draw = serve.setup(
-        "granite-8b", SERVE_TOKENS, SB, full=True, seed=seed)
+        "granite-8b", SERVE_TOKENS, SB, full=True, page_size=PG, seed=seed,
+        params=params)
     torch.cuda.synchronize()
     print(f"serve breakdown: weights {cfg.n_params:,} params, cache and "
           f"pools made in {time.time() - t0:.3f}s; peak device memory "
@@ -2167,6 +2598,7 @@ def serve_breakdown(seed: int, T_: int = 64, T_prof: int = 32):
         torch.cuda.synchronize()
         wall = time.time() - t0
     device_rows(prof, f"profile serve {T_prof} tokens", wall, T_prof)
+    del cache, kv
 
 
 def profiled(label: str, run, top: int = 12):
@@ -2373,20 +2805,26 @@ def synth_check(seed: int, n: int = 4096, T_: int = 256, k: int = 512):
 
 
 def serve_check(seed: int, T_: int = 48, batch: int = 2):
-    """The serving loop on the card and on the CPU: reduced granite-8b in
-    f32 (TF32 off), weights made from the seed on the CPU, the same q/k/v
-    streams.  Plans, residency, slots and tokens exact at every step;
-    attention mass, fast-mass share and the pools within 1e-5."""
+    """The serving loop on the card and on the CPU under every registry
+    family: reduced granite-8b in f32 (TF32 off), weights made from the
+    seed on the CPU, the same q/k/v streams.  Plans, residency, slots and
+    tokens exact at every step; attention mass, fast-mass share and the
+    pools within 1e-5."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = registry.reduced(registry.get_arch("granite-8b"))
     params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    for fam in sorted(experiment.POLICY_REGISTRY):
+        serve_check_family(seed, T_, batch, cfg, params, fam)
+
+
+def serve_check_family(seed, T_, batch, cfg, params, fam):
     to = lambda t, d: {k: to(v, d) for k, v in t.items()} \
         if isinstance(t, dict) else t.to(d)
     runs = {}
     for dev in ("cuda", "cpu"):
         _, p, pk_cfg, kv, cache, draw = serve.setup(
             "granite-8b", T_, batch, page_size=8, seed=seed, device=dev,
-            params=to(params, dev))
+            params=to(params, dev), policy=fam)
         token = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
         ewma = torch.zeros((pk_cfg.n_pages,), dtype=torch.float32,
                            device=dev)
@@ -2403,19 +2841,38 @@ def serve_check(seed: int, T_: int = 48, batch: int = 2):
     for t, (a, b) in enumerate(zip(card, cpu)):
         for nm, x, y in zip(("token", "promote", "demote", "pexec", "dexec",
                              "in_fast", "slot"), a[:7], b[:7]):
-            require(torch.equal(x, y), f"serve check t={t}: {nm} differs "
-                    f"card {x.tolist()} cpu {y.tolist()}")
+            require(torch.equal(x, y), f"serve check {fam} t={t}: {nm} "
+                    f"differs card {x.tolist()} cpu {y.tolist()}")
         for nm, x, y in zip(("mass", "fast-mass share"), a[7:], b[7:]):
             err = float((x.double() - y.double()).abs().max())
-            require(err <= 1e-5, f"serve check t={t}: {nm} error {err}")
+            require(err <= 1e-5, f"serve check {fam} t={t}: {nm} error "
+                    f"{err}")
         fires += int((a[1] >= 0).any())
     err = max(float((x - y).abs().max()) for x, y in ((kc, kw), (vc, vw)))
-    require(err <= 1e-5, f"serve check: pools differ by {err}")
-    print(f"serve check: card == cpu over {T_} tokens at batch {batch} "
-          f"(reduced granite-8b, f32): plans, residency, slots and tokens "
+    require(err <= 1e-5, f"serve check {fam}: pools differ by {err}")
+    print(f"serve check {fam}: card == cpu over {T_} tokens at batch "
+          f"{batch} (reduced granite-8b, f32): plans, residency, slots and "
+          f"tokens "
           f"exact ({fires} fires with plans, "
           f"{int(card[-1][5].sum())} pages fast at the end); pools max "
           f"error {err}", flush=True)
+
+
+def engine_check(seed: int, n: int = 4096, T_: int = 96, k: int = 512):
+    """``engine.run`` on the card against the CPU for every policy of
+    ``ENGINE_POLICIES`` at n = 4,096 on one CRN field, a hot set twice the
+    fast tier that moves every 32 intervals: counts and timelines exact,
+    exec time within 1e-4 relative, recall and hits within 1e-6."""
+    trace = gups_trace(T_, n, seed + 2, hot_frac=0.25, shift_every=32)
+    u = uniform_field(T_, n, seed=seed + 3)
+    moved = []
+    for label, make, mname, _ in ENGINE_POLICIES:
+        a, b = (engine.run(make(), trace, mname, k, sample_u=u, device=dev)
+                for dev in ("cuda", "cpu"))
+        same_runs(a, b, f"engine {label}")
+        moved.append(f"{label}={a.promotions}")
+    print(f"engine check: card == cpu at n={n} T={T_} k={k}, promotions "
+          f"{' '.join(moved)}", flush=True)
 
 
 def train_check(seed: int, steps_: int = 3, seq: int = 40):
@@ -2574,8 +3031,9 @@ def main():
     for nm, row in rows.items():   # launches: every path of the main path
         row["launches"] = sum(c[nm] for c in by_path.values())
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
-    for check in (whole_path_check, policy_check, synth_check, search_check,
-                  board_check, serve_check, train_check, ssm_decode_check):
+    for check in (whole_path_check, policy_check, engine_check, synth_check,
+                  search_check, board_check, serve_check, train_check,
+                  ssm_decode_check):
         t1 = time.time()
         check(args.seed)
         print(f"{check.__name__}: {time.time() - t1:.1f}s", flush=True)

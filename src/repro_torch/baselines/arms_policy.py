@@ -4,23 +4,33 @@
 policy over tensor-dataclass state, with the ARMSConfig float knobs under
 sweep (``cfg_names``/``cfg_vals``) as leaves, so a tuning grid runs as
 lanes of one engine pass.  ``ARMSServeSpec`` is ARMS as the serving
-pools run it (``tiering/tiered_pool.py``).  The numpy engine's
-``ARMSPolicy`` waits.
+pools run it (``tiering/tiered_pool.py``).  ``ARMSPolicy`` is the
+hand-tuned stateful wrapper for the numpy reference engine: ARMS's
+sampling period and cadence follow its mode, so the generic
+``LegacyPolicyAdapter`` would read them from the device every interval,
+while this wrapper caches them on the host and refreshes them once a
+policy pass (the mode changes only inside ``arms_step_impl``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.baselines.base import Policy
 from repro_torch.baselines.protocol import PolicySpec
 from repro_torch.core.controller import (MODE_SAMPLING_PERIODS,
+                                         POLICY_EVERY_HISTORY,
+                                         POLICY_EVERY_RECENCY,
+                                         SAMPLING_PERIOD_HISTORY,
                                          SAMPLING_PERIOD_RECENCY,
                                          arms_step_impl, policy_every,
                                          sampling_period)
 from repro_torch.core.scheduler import observe_migration_cost
-from repro_torch.core.state import (MODE_RECENCY, ARMSConfig, TieringState,
-                                    init_state)
+from repro_torch.core.state import (MODE_HISTORY, MODE_RECENCY, ARMSConfig,
+                                    TieringState, init_state)
+from repro_torch.utils.device import f32_on, resolve_device
 from repro_torch.utils.pytree import tensor_dataclass
 
 # ARMSConfig float knobs that may be swept per lane.  Shape-determining
@@ -54,6 +64,8 @@ class ARMSSpec(PolicySpec):
     base_cfg: ARMSConfig = ARMSConfig()
 
     name = "arms"
+    dynamic_sampling_period = True
+    has_mode = True
     #: mode-indexed sampling periods for precomputed CRN observation grids
     PRE_PERIODS = MODE_SAMPLING_PERIODS
 
@@ -102,6 +114,9 @@ class ARMSSpec(PolicySpec):
     def fires(self, state):
         return (state.t % policy_every(state.inner.mode)) == 0
 
+    def fire_period(self):
+        return None     # 5 intervals in history mode, 1 in recency mode
+
     def sampling_period(self, state):
         return sampling_period(state.inner.mode).float()
 
@@ -148,6 +163,8 @@ class ARMSServeSpec(ARMSSpec):
 
     pool_every: int = 8
 
+    dynamic_sampling_period = False
+
     @classmethod
     def make_serving(cls, base_cfg: ARMSConfig,
                      pool_every: int) -> "ARMSServeSpec":
@@ -159,10 +176,8 @@ class ARMSServeSpec(ARMSSpec):
         # interval pool_every.
         return (state.t % self.pool_every) == 0
 
-    def fires_at(self, t: int) -> bool:
-        """``fires`` for a host-side count of observed intervals: the
-        cadence is fixed, so the pool decides without a device sync."""
-        return t % self.pool_every == 0
+    def fire_period(self):
+        return self.pool_every
 
     def sampling_period(self, state):
         return torch.full_like(state.t, self.DEFAULT_SAMPLE_PERIOD,
@@ -177,3 +192,84 @@ class ARMSServeSpec(ARMSSpec):
                              -1).to(torch.int32)
         state = state.replace(inner=inner, buf=torch.zeros_like(state.buf))
         return state, promote, demote
+
+
+class ARMSPolicy(Policy):
+    """ARMS for the numpy reference engine: the controller on one lane of
+    the device ``reset`` names, its cadence and sampling period cached on
+    the host (module docstring)."""
+
+    name = "arms"
+
+    def __init__(self, cfg: ARMSConfig | None = None):
+        self.base_cfg = cfg or ARMSConfig()
+
+    @property
+    def migration_limit(self):  # batched migrations: up to BS_max a pass
+        return self.base_cfg.bs_max
+
+    def reset(self, n_pages, k, machine, device=None):
+        from repro_torch.simulator import machines
+        machine = machines.get(machine)
+        self.device = resolve_device(device)
+        self.n, self.k = n_pages, k
+        self.cfg = self.base_cfg
+        self.state = init_state(1, n_pages, self.cfg, self.device)
+        self.buf = torch.zeros((n_pages,), dtype=torch.float64,
+                               device=self.device)
+        self.t = 0
+        # f32 path sums over the pairs, as ARMSSpec.init
+        path = lambda pair_us: torch.full(
+            (1,), float(np.sum(np.asarray(pair_us, np.float32))),
+            dtype=torch.float32, device=self.device)
+        self._promo_us = path(machine.promo_pair_us)
+        self._demo_us = path(machine.demo_pair_us)
+        self._set_mode(MODE_HISTORY)
+
+    def _set_mode(self, mode: int):
+        """Host-side cadence cache, refreshed once per policy invocation."""
+        self._mode = int(mode)
+        recency = self._mode == MODE_RECENCY
+        self._every = POLICY_EVERY_RECENCY if recency else POLICY_EVERY_HISTORY
+        self._period = float(SAMPLING_PERIOD_RECENCY if recency
+                             else SAMPLING_PERIOD_HISTORY)
+
+    def sampling_period(self):
+        return self._period
+
+    def step(self, observed, slow_bw_frac, app_bw_frac):
+        self.t += 1
+        self.buf += observed
+        every = self._every
+        if self.t % every:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+
+        # normalize accumulated counts to per-interval rate so the EWMA
+        # scale is mode-independent (500ms vs 100ms policy cadence, §5):
+        # f32 in, f32 divide, by a tensor (a Python divisor becomes a
+        # multiply by its reciprocal on the card).
+        counts = self.buf.float() / f32_on(every, self.device)
+        f32 = lambda v: torch.full((1,), float(v), dtype=torch.float32,
+                                   device=self.device)
+        self.state, plan = arms_step_impl(
+            self.state, counts[None], f32(slow_bw_frac), f32(app_bw_frac),
+            cfg=self.cfg, k=self.k)
+        self.buf.zero_()
+        # one copy to the host: the plan and the new mode
+        host = torch.cat([plan.promote[0], plan.demote[0],
+                          plan.valid[0].to(torch.int32),
+                          self.state.mode]).cpu().numpy().astype(np.int64)
+        P = plan.promote.shape[1]
+        valid = host[2 * P:3 * P].astype(bool)
+        promote = host[:P][valid]
+        demote = host[P:2 * P][valid]
+        demote = demote[demote >= 0]
+        if len(promote):   # §4.3: self-calibrating migration-cost feedback
+            self.state = observe_migration_cost(
+                self.state, self._promo_us, self._demo_us, self.cfg)
+        self._set_mode(host[-1])
+        return promote, demote
+
+    @property
+    def mode(self) -> int:
+        return self._mode

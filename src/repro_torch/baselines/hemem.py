@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.baselines.protocol import (PolicySpec, capacity_victims,
-                                            knob, lanes_of, ranked_take,
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter, PolicySpec,
+                                            capacity_victims, knob,
+                                            knob_period, lanes_of, ranked_take,
                                             scatter_set, truncate_ranked)
 from repro_torch.utils.pytree import tensor_dataclass
 
@@ -95,6 +96,9 @@ class HeMemSpec(PolicySpec):
         period = torch.clamp_min(self.migration_period.to(torch.int32), 1)
         return (state.t % period) == 0
 
+    def fire_period(self):
+        return knob_period(self.migration_period)
+
     def policy(self, state, slow_bw, app_bw, k):
         n = state.counts.shape[1]
         hot = state.counts >= self.hot_threshold[:, None]
@@ -110,3 +114,18 @@ class HeMemSpec(PolicySpec):
         in_fast = scatter_set(state.in_fast, victims, False)
         in_fast = scatter_set(in_fast, promote, True)
         return state.replace(in_fast=in_fast), promote, victims
+
+
+class HeMemPolicy(LegacyPolicyAdapter):
+    """HeMem for the numpy reference engine (functional spec underneath).
+
+    Subclasses may override the ``migration_limit`` class attribute; it is
+    forwarded into the spec."""
+
+    migration_limit = 12
+
+    def __init__(self, hot_threshold=None, cooling_threshold=None,
+                 migration_period=None, sample_period=None):
+        super().__init__(HeMemSpec.make(
+            hot_threshold, cooling_threshold, migration_period,
+            sample_period, migration_limit=type(self).migration_limit))

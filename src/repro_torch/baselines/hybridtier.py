@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.baselines.protocol import (TierNativeSpec, knob, lanes_of,
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter,
+                                            TierNativeSpec, knob, lanes_of,
                                             rank_desc, rank_partition,
                                             tier_plan)
 from repro_torch.core.scheduler import pair_budgets
@@ -85,3 +86,12 @@ class HybridTierSpec(TierNativeSpec):
             state.counts, state.tier, tgt, caps, budgets,
             self.pad_demote(n, k), self.pad_promote(n, k))
         return state.replace(tier=tier), pages, dst
+
+
+class HybridTierPolicy(LegacyPolicyAdapter):
+    """HybridTier for the numpy reference engine (functional spec inside)."""
+
+    def __init__(self, hot_thresh=None, warm_thresh=None, decay=None,
+                 migration_period=None, sample_period=None):
+        super().__init__(HybridTierSpec.make(
+            hot_thresh, warm_thresh, decay, migration_period, sample_period))

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.baselines.protocol import (TierNativeSpec, knob, lanes_of,
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter,
+                                            TierNativeSpec, knob, lanes_of,
                                             rank_desc, rank_partition,
                                             tier_plan)
 from repro_torch.core.scheduler import pair_budgets
@@ -101,3 +102,12 @@ class JengaSpec(TierNativeSpec):
         return (state.replace(tier=tier, streak=streak, last_tgt=raw,
                               moved_at=moved_at, passes=p[:, 0]),
                 pages, dst)
+
+
+class JengaPolicy(LegacyPolicyAdapter):
+    """Jenga for the numpy reference engine (functional spec inside)."""
+
+    def __init__(self, alpha=None, confirm=None, cooldown=None,
+                 migration_period=None, sample_period=None):
+        super().__init__(JengaSpec.make(
+            alpha, confirm, cooldown, migration_period, sample_period))

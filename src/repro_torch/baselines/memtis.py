@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.baselines.protocol import (PolicySpec, capacity_victims,
-                                            knob, lanes_of, ranked_take,
-                                            scatter_set, truncate_ranked)
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter, PolicySpec,
+                                            capacity_victims, knob, lanes_of,
+                                            ranked_take, scatter_set,
+                                            truncate_ranked)
 from repro_torch.utils.pytree import tensor_dataclass
 
 DEFAULTS = dict(cooling_period_samples=2e6, adaptation_period=10)
@@ -93,3 +94,12 @@ class MemtisSpec(PolicySpec):
         in_fast = scatter_set(in_fast, promote, True)
         return (state.replace(in_fast=in_fast, hot_threshold=hot_threshold),
                 promote, victims)
+
+
+class MemtisPolicy(LegacyPolicyAdapter):
+    """Memtis for the numpy reference engine (functional spec underneath)."""
+
+    def __init__(self, cooling_period_samples: float = 2e6,
+                 adaptation_period: int = 10):
+        super().__init__(MemtisSpec.make(cooling_period_samples,
+                                         adaptation_period))

@@ -41,17 +41,26 @@ union fabric, simulator/fabric.py): ``wants_true_lane`` (bool [B]: the
 lane observes true counts) and ``slow_extra_lane`` (f32 [B]: ns charged a
 slow-tier access); their defaults read the class attributes.  The engine
 reads ``fire_flags(do)`` on the host once an interval: the default is
-``do.any()``, the union's one flag a member.
+``do.any()``, the union's one flag a member.  A caller that counts
+observed intervals itself (the serving pool) reads ``fire_period()``
+once instead: the cadence of ``fires`` where it is fixed, ``None`` where
+it follows the run state.
 
-The numpy engine's ``LegacyPolicyAdapter`` waits.
+``LegacyPolicyAdapter`` wraps a spec back into the stateful ``Policy``
+interface (baselines/base.py), so the numpy reference engine
+(``simulator/engine.py::run``) replays every policy with the decisions of
+the scan engine.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.baselines.base import Policy
 from repro_torch.core.costbenefit import ranked_top
 from repro_torch.simulator.simjax import DST_BELOW
-from repro_torch.utils.pytree import bwhere, scatter_drop
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import bwhere, lane_specs, scatter_drop
 
 #: padding entry of the padded-index plans
 SENTINEL = -1
@@ -111,6 +120,14 @@ def knob(v, key: str, defaults: dict, dtype):
     return torch.tensor(defaults[key] if v is None else v, dtype=dtype)
 
 
+def knob_period(period):
+    """The fire period of a ``migration_period`` knob as ``fires`` uses it
+    (at least 1), read on the host once; ``None`` if the lanes differ."""
+    vals = set(torch.clamp_min(period.to(torch.int32), 1).reshape(-1)
+               .tolist())
+    return vals.pop() if len(vals) == 1 else None
+
+
 # ---------------------------------------------------------------- protocol
 class PolicySpec:
     """Base of the functional policy protocol (subclass + tensor_dataclass).
@@ -163,6 +180,14 @@ class PolicySpec:
     def fires(self, state):
         """bool [B]: does the policy pass run this interval?"""
         return torch.ones_like(state.t, dtype=torch.bool)
+
+    def fire_period(self):
+        """The cadence of ``fires`` as the host reads it once: the pass
+        runs on observed interval t iff ``t % period == 0`` (1: every
+        interval, 0: never), or ``None`` where it follows the run state
+        and the caller reads ``fires``.  A spec that overrides ``fires``
+        overrides this too."""
+        return 1
 
     def sampling_period(self, state):
         return torch.full_like(state.t, self.DEFAULT_SAMPLE_PERIOD,
@@ -256,6 +281,9 @@ class TierNativeSpec(PolicySpec):
     def fires(self, state):
         period = torch.clamp_min(self.migration_period.to(torch.int32), 1)
         return (state.t % period) == 0
+
+    def fire_period(self):
+        return knob_period(self.migration_period)
 
 
 def capacity_victims(in_fast, cold_key, cold_mask, n_want, k: int,
@@ -376,3 +404,94 @@ def tier_plan(score, cur, target, caps, budgets, pad_down: int,
     pages = torch.cat([d_pages, u_pages], dim=1)
     dst = torch.cat([d_tgt, u_tgt], dim=1)
     return pages, dst, new_cur
+
+
+# ----------------------------------------------------------- legacy bridge
+class LegacyPolicyAdapter(Policy):
+    """A functional ``PolicySpec`` exposed as a stateful numpy-engine
+    ``Policy``.
+
+    The adapter holds one lane of the spec's state on the device
+    ``reset`` names and runs an interval as ``step``/``step_tiers``
+    compose it: observe, then the policy pass if ``fires``, with no jit.
+    The fire flag is read on the host, so an interval whose pass is not
+    due runs none (JAX's ``lax.cond``); the padded plans come back to the
+    host with the sentinels dropped, order kept.  The decisions are
+    therefore the scan engine's, the basis of the cross-engine
+    equivalence tests.
+    """
+
+    def __init__(self, spec: PolicySpec):
+        self.spec = spec
+        self.name = spec.name
+        self.slow_access_extra_ns = spec.slow_access_extra_ns
+
+    def reset(self, n_pages, k, machine, device=None):
+        from repro_torch.simulator import machine_spec, machines
+        self.device = resolve_device(device)
+        self.n, self.k = n_pages, k
+        mach, _ = machine_spec.lane_stack([machines.get(machine)], n_pages,
+                                          k, self.device)
+        self.lane = lane_specs(self.spec, 1).to(self.device)
+        self.state = self.lane.init(n_pages, k, mach)
+        self._period = float(self.lane.sampling_period(self.state))
+
+    def sampling_period(self):
+        return self._period
+
+    def wants_true_counts(self):
+        return self.spec.wants_true_counts
+
+    @property
+    def mode(self) -> int:
+        if not type(self.spec).has_mode:
+            return 0
+        return int(self.lane.mode_of(self.state))
+
+    @property
+    def tier_native(self) -> bool:
+        return type(self.spec).tier_native
+
+    def _f32(self, v):
+        return torch.full((1,), float(v), dtype=torch.float32,
+                          device=self.device)
+
+    def _observe(self, observed) -> bool:
+        """Observe the interval; -> whether the policy pass is due."""
+        self.state = self.lane.observe(
+            self.state, observed.to(self.device, torch.float32)[None])
+        return bool(self.lane.fires(self.state))
+
+    def _after(self, *plans):
+        """Host copies of the pass's [1, m] plans, rereading the sampling
+        period of a spec whose period follows its state."""
+        if type(self.spec).dynamic_sampling_period:
+            self._period = float(self.lane.sampling_period(self.state))
+        return [p[0].cpu().numpy().astype(np.int64) for p in plans]
+
+    def step(self, observed, slow_bw_frac, app_bw_frac):
+        if not self._observe(observed):
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        self.state, promote, demote = self.lane.policy(
+            self.state, self._f32(slow_bw_frac), self._f32(app_bw_frac),
+            self.k)
+        promote, demote = self._after(promote, demote)
+        return promote[promote >= 0], demote[demote >= 0]
+
+    def step_tiers(self, observed, slow_bw_frac, app_bw_frac, tier_util,
+                   caps):
+        """Tier-native interval: -> (pages, dst) aligned i64 arrays with
+        the sentinels dropped (priority order kept).  ``tier_util`` [R]
+        (host or device), ``caps`` the host's [R] capacities."""
+        if not self._observe(observed):
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        tier_util = torch.as_tensor(tier_util).to(
+            self.device, torch.float32).reshape(1, -1)
+        caps = torch.as_tensor(np.asarray(caps, np.int32)).to(
+            self.device).reshape(1, -1)
+        self.state, pages, dst = self.lane.tier_policy(
+            self.state, tier_util, self._f32(slow_bw_frac),
+            self._f32(app_bw_frac), self.k, caps)
+        pages, dst = self._after(pages, dst)
+        keep = pages >= 0
+        return pages[keep], dst[keep]

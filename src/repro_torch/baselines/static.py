@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.baselines.protocol import PolicySpec, lanes_of, ranked_take
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter, PolicySpec,
+                                            lanes_of, ranked_take)
 from repro_torch.kernels.interval_step import ops as interval_ops
 from repro_torch.utils.pytree import tensor_dataclass
 
@@ -29,6 +30,9 @@ class AllSlowSpec(PolicySpec):
 
     def fires(self, state):
         return torch.zeros_like(state.t, dtype=torch.bool)
+
+    def fire_period(self):
+        return 0
 
     def pad_promote(self, n, k):
         return 1
@@ -85,3 +89,13 @@ class OracleSpec(PolicySpec):
         demote, _ = ranked_take(idx, ~target & state.in_fast,
                                 self.pad_demote(n, k), n_p)
         return state.replace(in_fast=target), promote, demote
+
+
+class AllSlowPolicy(LegacyPolicyAdapter):
+    def __init__(self):
+        super().__init__(AllSlowSpec())
+
+
+class OraclePolicy(LegacyPolicyAdapter):
+    def __init__(self):
+        super().__init__(OracleSpec())

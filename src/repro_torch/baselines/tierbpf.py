@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.baselines.jenga import ewma
-from repro_torch.baselines.protocol import (TierNativeSpec, knob, lanes_of,
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter,
+                                            TierNativeSpec, knob, lanes_of,
                                             rank_desc, rank_partition,
                                             tier_plan)
 from repro_torch.core.scheduler import pair_budgets
@@ -106,3 +107,14 @@ class TierBPFSpec(TierNativeSpec):
         up_at = torch.where(tier < state.tier, p[:, None], state.up_at)
         return (state.replace(tier=tier, up_at=up_at, regret=regret,
                               passes=p), pages, dst)
+
+
+class TierBPFPolicy(LegacyPolicyAdapter):
+    """TierBPF for the numpy reference engine (functional spec inside)."""
+
+    def __init__(self, alpha=None, admit_thresh=None, thrash_gain=None,
+                 regret_alpha=None, migration_period=None,
+                 sample_period=None):
+        super().__init__(TierBPFSpec.make(
+            alpha, admit_thresh, thrash_gain, regret_alpha,
+            migration_period, sample_period))

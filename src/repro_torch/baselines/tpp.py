@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.baselines.protocol import (PolicySpec, capacity_victims,
-                                            knob, lanes_of, ranked_take,
-                                            scatter_set, truncate_ranked)
+from repro_torch.baselines.protocol import (LegacyPolicyAdapter, PolicySpec,
+                                            capacity_victims, knob, lanes_of,
+                                            ranked_take, scatter_set,
+                                            truncate_ranked)
 from repro_torch.utils.pytree import scatter_drop, tensor_dataclass
 
 DEFAULTS = dict(promote_hits=2.0, watermark=0.98)
@@ -94,3 +95,10 @@ class TPPSpec(PolicySpec):
         faults = scatter_drop(state.faults, promote, 0.0, promote >= 0)
         faults = scatter_drop(faults, victims, 0.0, victims >= 0)
         return state.replace(in_fast=in_fast, faults=faults), promote, victims
+
+
+class TPPPolicy(LegacyPolicyAdapter):
+    """TPP for the numpy reference engine (functional spec underneath)."""
+
+    def __init__(self, promote_hits: float = 2.0, watermark: float = 0.98):
+        super().__init__(TPPSpec.make(promote_hits, watermark))

@@ -5,11 +5,13 @@ arrays (``jax.tree_util.tree_map(np.asarray, obj)``) and returns the
 port's tensor dataclass (or, for ``model_params``, its parameter dict):
 the simulator's policy specs, policy state and machines (ARMS and the
 eight baseline families), its workload specs and workload state, the
-model weights, the
-serving layer's ``TieredPool`` and ``PagedKV``, and the optimizer's
-``AdamWState``.  Fields are read by name, so nothing of the JAX package
-is imported here.  A per-lane object (the JAX package's layout outside
-``vmap``) gains a lane axis of 1; a lane-batched one keeps its lanes.
+model weights, the serving layer's ``TieredPool`` (any policy family),
+``PagedKV``, ``ExpertTier`` and ``EmbedTier``, and the optimizer's
+``AdamWState``.  ``pool_leaves`` and ``expert_leaves`` carry the serving
+state back to the JAX package's layout as numpy arrays.  Fields are read
+by name, so nothing of the JAX package is imported here.  A per-lane
+object (the JAX package's layout outside ``vmap``) gains a lane axis of
+1; a lane-batched one keeps its lanes.
 Like every entry point of the port, each function puts its tensors on
 the CUDA card unless the caller passes ``device="cpu"``.
 """
@@ -193,20 +195,47 @@ def adamw_state(state_np, params, device=None):
 
 
 def tiered_pool(pool, device=None):
-    """A JAX ``TieredPool`` driven by ``ARMSServeSpec`` as the port's
-    (one policy lane; the host count ``t`` from the pool's ``t``)."""
+    """A JAX ``TieredPool`` of any policy family as the port's: the spec
+    and its state with one lane, the host count ``t`` from the pool's
+    ``t``, the fire period from the spec."""
     from repro_torch.baselines.arms_policy import ARMSServeSpec
     from repro_torch.tiering.tiered_pool import TieredPool
+    from repro_torch.utils.pytree import lane_specs
     device = resolve_device(device)
-    spec = ARMSServeSpec(
-        cfg_vals=torch.from_numpy(np.array(pool.spec.cfg_vals, np.float32))
-        .to(device), cfg_names=tuple(pool.spec.cfg_names),
-        base_cfg=arms_config(pool.spec.base_cfg),
-        pool_every=int(pool.spec.pool_every))
-    return _fields(TieredPool, pool, True, device, spec=spec,
-                   state=arms_run_state(pool.state, device),
+    jspec = pool.spec
+    if jspec.name != "arms":
+        spec = policy_spec(jspec, device)
+        state = policy_state(pool.state, jspec.name, device)
+    else:
+        if hasattr(jspec, "pool_every"):
+            spec = ARMSServeSpec(
+                cfg_vals=torch.from_numpy(np.array(jspec.cfg_vals,
+                                                   np.float32)).to(device),
+                cfg_names=tuple(jspec.cfg_names),
+                base_cfg=arms_config(jspec.base_cfg),
+                pool_every=int(jspec.pool_every))
+        else:
+            spec = arms_spec(jspec, device)
+        state = arms_run_state(pool.state, device)
+    spec = lane_specs(spec, 1)
+    return _fields(TieredPool, pool, True, device, spec=spec, state=state,
                    mach=tree_map(lambda x: x[0], machine(pool.mach, device)),
-                   t=int(np.asarray(pool.t)))
+                   t=int(np.asarray(pool.t)), period=spec.fire_period())
+
+
+#: the residency and telemetry leaves of a ``TieredPool``, by name
+POOL_LEAVES = ("in_fast", "slot", "counts", "read_fast", "read_slow",
+               "promoted_at", "demoted_at", "promos", "demos", "waste",
+               "wall_s", "wall_flat_s")
+
+
+def pool_leaves(pool) -> dict:
+    """The port's ``TieredPool`` back in the JAX package's layout: its
+    residency and telemetry leaves (``POOL_LEAVES``) and ``t`` as numpy
+    arrays, keyed by the JAX field names."""
+    out = {nm: getattr(pool, nm).cpu().numpy() for nm in POOL_LEAVES}
+    out["t"] = np.int32(pool.t)
+    return out
 
 
 def paged_kv(kv, device=None):
@@ -218,3 +247,30 @@ def paged_kv(kv, device=None):
         np.concatenate([np.asarray(f), np.asarray(s)])).to(device)
     return PagedKV(k=cat(kv.k_fast, kv.k_slow), v=cat(kv.v_fast, kv.v_slow),
                    pool=tiered_pool(kv.pool, device))
+
+
+def expert_tier(t, device=None):
+    """A JAX ``ExpertTier`` as the port's: each of ``wi`` and ``wo`` one
+    tensor, the fast slots first, then the home rows."""
+    from repro_torch.tiering.expert_tiering import ExpertTier
+    device = resolve_device(device)
+    cat = lambda f, s: torch.from_numpy(
+        np.concatenate([np.asarray(f), np.asarray(s)])).to(device)
+    return ExpertTier(wi=cat(t.wi_fast, t.wi_slow),
+                      wo=cat(t.wo_fast, t.wo_slow),
+                      pool=tiered_pool(t.pool, device))
+
+
+def expert_leaves(t) -> dict:
+    """The port's ``ExpertTier`` pools back in the JAX package's layout:
+    ``wi_fast``, ``wi_slow``, ``wo_fast``, ``wo_slow`` as numpy arrays."""
+    return {nm: getattr(t, nm).cpu().numpy()
+            for nm in ("wi_fast", "wi_slow", "wo_fast", "wo_slow")}
+
+
+def embed_tier(t, device=None):
+    """A JAX ``EmbedTier`` (home table + pool) as the port's."""
+    from repro_torch.tiering.embedding_tiering import EmbedTier
+    device = resolve_device(device)
+    return EmbedTier(table=torch.from_numpy(np.array(t.table)).to(device),
+                     pool=tiered_pool(t.pool, device))

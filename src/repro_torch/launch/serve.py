@@ -1,24 +1,27 @@
-"""Serving launcher with an ARMS-tiered paged KV cache, in torch.
+"""Serving launcher with a policy-tiered paged KV cache, in torch.
 
 The port of ``repro/launch/serve.py``: batched greedy decoding of a dense
 architecture (reduced by default, ``--full`` for the published widths
 and depth) while the KV pages of attention layer 0 live in a two-tier
-paged cache that ARMS places, written, attended, observed and migrated
-every token.  It reports throughput and the robustness leaderboard's
-telemetry: modeled tiered-vs-all-fast wall ratio, wasteful-migration
-fraction, promotions/demotions.
+paged cache placed by ANY registered placement policy (``--policy``,
+every family of ``experiment.POLICY_REGISTRY``), written, attended,
+observed and migrated every token.  It reports throughput and the
+robustness leaderboard's telemetry: modeled tiered-vs-all-fast wall
+ratio, wasteful-migration fraction, promotions/demotions.
 
 Telemetry accumulates on the device (the TieredPool) and is read once
 after the decode loop; ``--sync-telemetry`` reads it every token instead.
-Weights are random, drawn from a ``torch.Generator`` on the device seeded
-by ``--seed``; the tiered layer's q/k/v telemetry streams come from one
-CPU generator seeded by ``--seed``, so a card run and a CPU run see the
-same streams.  ``--policy`` takes ``arms`` only and ``--capture`` is not
-ported yet (the rest of the serving stack, ROADMAP queue 1).
+``--capture PATH`` saves the per-token paged-KV attention-mass stream as
+a replayable ``TraceWorkload`` (simulator/traces.py), grouped by the
+pool's ``policy_every``.  Weights are random, drawn from a
+``torch.Generator`` on the device seeded by ``--seed`` (or passed in as
+``params``); the tiered layer's q/k/v telemetry streams come from one CPU
+generator seeded by ``--seed``, so a card run and a CPU run see the same
+streams.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
-      --full --tokens 512 --batch 8
+      --full --tokens 512 --batch 8 --policy memtis --capture /tmp/kv.npz
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ class ServeReport:
     slowdown: float          # modeled tiered wall / all-fast wall
     fast_mass: np.ndarray    # [T] fast-tier attention-mass share per step
     telemetry: dict          # full tiered_pool.telemetry record
-    trace: object = None     # trace capture is not ported (always None)
+    trace: object = None     # TraceWorkload when capture=True
     kv: object = None        # final PagedKV (tests inspect the pools)
     init_s: float = 0.0      # wall seconds of weight + cache set-up
 
@@ -134,18 +137,16 @@ def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
           page_size: int = 16, fast_frac: float = 0.25, seed: int = 0,
           policy: str = "arms", machine: str = TP.DEFAULT_MACHINE,
           sync_telemetry: bool = False, capture: bool = False,
-          quiet: bool = False, device=None) -> ServeReport:
+          quiet: bool = False, device=None, params=None) -> ServeReport:
     """Decode ``n_tokens`` greedy tokens for ``batch`` sequences on
-    ``device`` (``None``: the CUDA card) with layer 0's KV cache tiered."""
-    if capture:
-        raise NotImplementedError(
-            "--capture is not ported yet (the rest of the serving stack, "
-            "ROADMAP queue 1)")
+    ``device`` (``None``: the CUDA card) with layer 0's KV cache tiered
+    by ``policy``; ``params`` as ``setup`` takes them.  ``capture=True``
+    returns the access trace in ``ServeReport.trace``."""
     device = resolve_device(device)
     t_init = time.time()
     cfg, params, pk_cfg, kv, cache, draw = setup(
         arch, n_tokens, batch, full, page_size, fast_frac, seed, policy,
-        machine, device)
+        machine, device, params)
     _sync(device)
     init_s = time.time() - t_init
 
@@ -153,12 +154,15 @@ def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
     mass_ewma = torch.zeros((pk_cfg.n_pages,), dtype=torch.float32,
                             device=device)
     shares = []    # device scalars; one transfer after the loop
+    masses = []    # device [n_pages] access rows (trace capture)
     promotions_sync = 0
     t0 = time.time()
     for t in range(n_tokens):
         token, cache, kv, plan, mass_ewma, share = serve_token(
             params, cfg, pk_cfg, token, cache, kv, mass_ewma, t, draw)
         shares.append(share)
+        if capture:
+            masses.append(plan.access)
         if sync_telemetry:
             promotions_sync += int(plan.count)
             float(plan.fast_share)
@@ -168,6 +172,12 @@ def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
 
     tele = TP.telemetry(kv.pool)                   # the one host sync
     fast_mass = torch.stack(shares).cpu().numpy()
+    trace = None
+    if capture:
+        from repro_torch.simulator import traces
+        trace = traces.capture_from_steps(
+            torch.stack(masses).cpu().numpy(), group=pk_cfg.policy_every,
+            label=f"{arch}-kv")
     if sync_telemetry:
         assert promotions_sync == tele["promotions"]
     rep = ServeReport(
@@ -175,7 +185,7 @@ def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
         promotions=tele["promotions"], demotions=tele["demotions"],
         wasteful=tele["wasteful"], thrash=tele["thrash"],
         slowdown=tele["slowdown"], fast_mass=fast_mass, telemetry=tele,
-        kv=kv, init_s=init_s)
+        trace=trace, kv=kv, init_s=init_s)
     if not quiet:
         print(f"[serve] {arch}/{rep.policy}: {n_tokens} steps x {batch} "
               f"seqs = {tok_s:,.0f} tok/s"
@@ -189,24 +199,30 @@ def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
 
 
 def main():
+    from repro_torch.simulator.experiment import POLICY_REGISTRY
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--full", action="store_true")
-    ap.add_argument("--policy", default="arms", choices=["arms"])
+    ap.add_argument("--policy", default="arms",
+                    choices=sorted(POLICY_REGISTRY))
     ap.add_argument("--machine", default=TP.DEFAULT_MACHINE)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sync-telemetry", action="store_true",
                     help="per-token host-sync telemetry (slow)")
     ap.add_argument("--capture", default=None, metavar="PATH",
-                    help="not ported yet (the rest of the serving stack, "
-                    "ROADMAP queue 1)")
+                    help="save the paged-KV access trace as an .npz "
+                         "TraceWorkload")
     args = ap.parse_args()
-    serve(args.arch, args.tokens, args.batch, full=args.full,
-          policy=args.policy, machine=args.machine, seed=args.seed,
-          sync_telemetry=args.sync_telemetry,
-          capture=args.capture is not None)
+    rep = serve(args.arch, args.tokens, args.batch, full=args.full,
+                policy=args.policy, machine=args.machine, seed=args.seed,
+                sync_telemetry=args.sync_telemetry,
+                capture=args.capture is not None)
+    if args.capture:
+        rep.trace.save(args.capture)
+        print(f"[serve] trace [{rep.trace.T}x{rep.trace.n}] -> "
+              f"{args.capture}")
 
 
 if __name__ == "__main__":

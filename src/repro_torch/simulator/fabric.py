@@ -259,6 +259,9 @@ class UnionSpec(PolicySpec):
     def fires(self, state):
         return self._per_lane(state, "fires", torch.bool)
 
+    def fire_period(self):
+        return None     # each member's lanes keep their own cadence
+
     def sampling_period(self, state):
         return self._per_lane(state, "sampling_period", torch.float32)
 

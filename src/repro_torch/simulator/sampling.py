@@ -1,11 +1,14 @@
-"""PEBS-style access sampling emulation (paper §2, §4.1), CRN path.
+"""PEBS-style access sampling emulation (paper §2, §4.1).
 
 Hardware event sampling observes roughly 1 in ``period`` accesses; over an
 interval the per-page sample count is modeled as Poisson(true/period).
-The noise is a shared uniform field u[t, page] (common random numbers)
-turned into counts by the inverse-CDF transform
-``pebs_sample_from_uniform`` — the same transform, op for op, as the JAX
-package's, so both packages observe the same counts from the same field.
+The numpy reference engine's default draws it with numpy's Poisson
+sampler (``pebs_sample``: the JAX package's calls in the same order, so
+the same ``np.random.Generator`` gives the same counts).  The CRN path
+turns a shared uniform field u[t, page] (common random numbers) into
+counts by the inverse-CDF transform ``pebs_sample_from_uniform`` — the
+same transform, op for op, as the JAX package's, so both packages (and
+both engines) observe the same counts from the same field.
 
 Cross-device note: ``exp`` and ``log`` are evaluated in f64 and rounded
 once to f32.  f32 ``exp``/``log`` differ in the last bit between PyTorch's
@@ -97,6 +100,13 @@ def ndtri(p):
     x = torch.where(p > _f32(1.0 - np.exp(-2.0)), x, -x)
     inf = torch.full_like(p, float("inf"))
     return torch.where(p == 0.0, -inf, torch.where(p == 1.0, inf, x))
+
+
+def pebs_sample(true_counts: np.ndarray, period: float,
+                rng: np.random.Generator) -> np.ndarray:
+    """Observed per-page sample counts for one interval (numpy Poisson)."""
+    lam = np.maximum(true_counts, 0.0) / float(period)
+    return rng.poisson(lam).astype(np.float64)
 
 
 def pebs_sample_from_uniform(u, true_counts, period, *,

@@ -11,8 +11,10 @@ page to (tier, slot).  Per decode step:
      each page's attention mass, the access signal of the policy;
   3. the per-tier read volumes (every valid page read once from its tier)
      feed the pool's bandwidth signals;
-  4. ``tiered_pool.pool_step`` observes, and every ``policy_every`` steps
-     runs ARMS and migrates both pools through the ``migrate`` op.
+  4. ``tiered_pool.pool_step`` observes, and when the placement policy
+     is due (ANY family of ``experiment.POLICY_REGISTRY``, default ARMS
+     every ``policy_every`` steps) runs it and migrates both pools through
+     the ``migrate`` op.
 
 Layout: K and V are each ONE tensor ``[Pf + n, page, B, KV, dh]``, fast
 rows first, so the attention kernel reads a single pool through a block
@@ -103,6 +105,14 @@ def init_paged_kv(cfg: PagedKVConfig, bsz: int, kv_heads: int,
                    pool=pool)
 
 
+def with_residency(kv: PagedKV, in_fast) -> PagedKV:
+    """Override the residency mask (tests / sparse-attention what-ifs);
+    slots, pools and policy state are left as they are."""
+    return kv.replace(pool=kv.pool.replace(
+        in_fast=torch.as_tensor(in_fast, dtype=torch.bool,
+                                device=kv.k.device)))
+
+
 def page_kv_bytes(kv: PagedKV) -> float:
     """Bytes one K+V page occupies: the unit of the per-tier read volumes
     and of migration traffic."""
@@ -115,6 +125,17 @@ def block_table(kv: PagedKV):
     pf = kv.fast_pages
     return torch.where(kv.in_fast, kv.slot.clamp(0, pf - 1),
                        pf + kv.slot).to(torch.int32)
+
+
+def gather_kv(kv: PagedKV):
+    """Logical ``[n_pages, page, B, KV, dh]`` views of K and V (copies):
+    resident pages read their fast slot, the rest their home row."""
+    n = kv.in_fast.shape[0]
+    home = kv.fast_pages + torch.arange(n, dtype=torch.int32,
+                                        device=kv.k.device)
+    rows = torch.where(kv.in_fast, kv.slot.clamp(0, kv.fast_pages - 1),
+                       home).long()
+    return kv.k.index_select(0, rows), kv.v.index_select(0, rows)
 
 
 def read_volumes(kv: PagedKV, pos: int, cfg: PagedKVConfig):

@@ -1,27 +1,37 @@
-"""Tiered pool executor of the serving layer, in torch.
+"""Policy-generic tiered pool executor of the serving layer, in torch.
 
-The port of ``repro/tiering/tiered_pool.py`` for the binary route.  A
-``TieredPool`` carries a policy spec and its state next to the residency
-metadata of ``n`` pages, of which at most ``k`` live in the fast tier,
-and one ``pool_step`` runs
+The port of ``repro/tiering/tiered_pool.py``.  A ``TieredPool`` carries
+any registered policy family's spec and state (one lane) next to the
+residency metadata of ``n`` pages, of which at most ``k`` live in the
+fast tier, and one ``pool_step`` runs
 
     observe -> if fires: policy -> apply_padded_migrations -> data move
+
+Binary families emit promote/demote plans; the tier-native families
+(HybridTier, Jenga, TierBPF) see the two-tier chain through
+``tier_policy`` (caps ``[k, n]``, the per-tier read-time shares as their
+utilization) and their targeted moves collapse to promote (destination
+0) and demote (any deeper destination) lists in priority order.
 
 The data move goes through the ``migrate`` op (the hand-written CUDA
 kernel on the card): each moved buffer is ONE tensor ``[k + n, ...]``
 holding the fast rows first and the slow rows (indexed by page id, the
 home-slot invariant) after them, where the JAX package keeps two arrays
-``(fast [k, ...], slow [n, ...])``.  A fire is two launches over all the
-buffers at once, in stream order: the demotions' copy-back (fast slot ->
-home row) first, then the promotions (home row -> free fast slot), since a
-promotion may land in a slot that a demotion of the same fire vacated.
+``(fast [k, ...], slow [n, ...])``.  A fire is a launch for the
+demotions' copy-back (fast slot -> home row), then one for the
+promotions (home row -> free fast slot), over every buffer of one row
+shape at once, in stream order, since a promotion may land in a slot
+that a demotion of the same fire vacated.
 
-The policy's cadence is fixed (``ARMSServeSpec.fires_at``), so the pool
-counts observed intervals on the host (``t``) and branches there without
-a device sync; everything else, telemetry included, stays on the device
-until ``telemetry`` reads it once.  Only ``"arms"`` serves here: the other
-policy families wait for the rest of the serving stack (ROADMAP queue
-1), and the tier-native route with them.
+The fire decision is the host's: ``init_pool`` reads the spec's
+``fire_period`` once (ARMS's ``pool_every``, a family's
+``migration_period``; every interval for Memtis, TPP and the oracle,
+never for all-slow) and the pool counts observed intervals itself
+(``t``), so it branches without a device sync.  A spec whose cadence
+follows its state (``fire_period() is None``, e.g. the simulator's
+``ARMSSpec``) has its ``fires`` flag read once a step instead.
+Everything else, telemetry included, stays on the device until
+``telemetry`` reads it once.
 """
 from __future__ import annotations
 
@@ -31,13 +41,14 @@ import numpy as np
 import torch
 
 from repro_torch.baselines.arms_policy import ARMSServeSpec
-from repro_torch.baselines.protocol import SENTINEL, PolicySpec
+from repro_torch.baselines.protocol import SENTINEL, PolicySpec, ranked_take
 from repro_torch.core.state import ARMSConfig
 from repro_torch.kernels.migrate import ops as migrate_ops
 from repro_torch.simulator import machines, simjax
 from repro_torch.simulator.machine_spec import TieredMachineSpec
 from repro_torch.utils.device import f32_on, resolve_device
-from repro_torch.utils.pytree import scatter_drop, tensor_dataclass, tree_map
+from repro_torch.utils.pytree import (lane_specs, scatter_drop,
+                                      tensor_dataclass, tree_map)
 
 DEFAULT_MACHINE = "hbm-pcie"
 _EPS = 1e-12
@@ -45,21 +56,23 @@ _EPS = 1e-12
 
 def serving_policy(policy, arms_cfg: ARMSConfig | None = None,
                    pool_every: int = 8) -> PolicySpec:
-    """Resolve a policy name (or a spec instance) for serving; ``"arms"``
-    is ``ARMSServeSpec`` bound to the pool's ARMSConfig and cadence."""
+    """Resolve a policy family name (or a spec instance) for serving.
+
+    ``"arms"`` maps to ``ARMSServeSpec`` (raw counts, fixed cadence; see
+    baselines/arms_policy.py) bound to the pool's ARMSConfig and cadence;
+    every other name resolves through ``experiment.POLICY_REGISTRY``, so
+    the serving layer takes exactly the simulator's policy families."""
     if isinstance(policy, PolicySpec):
-        if not isinstance(policy, ARMSServeSpec):
-            raise NotImplementedError(
-                f"{type(policy).__name__}: only ARMSServeSpec serves in "
-                f"the port yet (the rest of the serving stack, ROADMAP "
-                f"queue 1)")
         return policy
-    if str(policy).lower() != "arms":
-        raise NotImplementedError(
-            f"policy {policy!r}: only 'arms' serves in the port yet; the "
-            f"other families wait for the rest of the serving stack (ROADMAP "
-            f"queue 1)")
-    return ARMSServeSpec.make_serving(arms_cfg or ARMSConfig(), pool_every)
+    name = str(policy).lower()
+    if name == "arms":
+        return ARMSServeSpec.make_serving(arms_cfg or ARMSConfig(),
+                                          pool_every)
+    from repro_torch.simulator.experiment import POLICY_REGISTRY
+    if name not in POLICY_REGISTRY:
+        raise ValueError(f"unknown policy {policy!r}; known: "
+                         f"{sorted(POLICY_REGISTRY)}")
+    return POLICY_REGISTRY[name]()
 
 
 @tensor_dataclass
@@ -75,14 +88,14 @@ class PoolPlan:
     fast_share: torch.Tensor  # f32 access share served fast, post-policy
 
 
-@tensor_dataclass(meta=("t",))
+@tensor_dataclass(meta=("t", "period"))
 class TieredPool:
     """Residency + policy + device-side telemetry for one tiered pool.
 
-    Leaves are 0-d or ``[n]`` tensors, except the policy state, whose
-    leaves carry one lane (``[1, ...]``).  ``t`` counts observed
-    intervals on the host."""
-    spec: PolicySpec
+    Leaves are 0-d or ``[n]`` tensors, except the policy spec and state,
+    whose leaves carry one lane (``[1, ...]``).  ``t`` counts observed
+    intervals on the host; ``period`` is the spec's ``fire_period``."""
+    spec: PolicySpec           # one lane
     state: object              # the spec's run state, one lane
     in_fast: torch.Tensor      # [n] bool residency
     slot: torch.Tensor         # [n] i32 slot within the page's tier pool
@@ -98,6 +111,7 @@ class TieredPool:
     wall_flat_s: torch.Tensor  # f32 all-fast counterfactual
     mach: TieredMachineSpec    # 2-tier machine, f32 [R] leaves
     t: int = 0
+    period: int | None = 1
 
 
 def _machine32(machine, device) -> TieredMachineSpec:
@@ -114,14 +128,15 @@ def init_pool(policy, n: int, k: int, machine=DEFAULT_MACHINE,
               arms_cfg: ARMSConfig | None = None, pool_every: int = 8,
               device=None) -> TieredPool:
     device = resolve_device(device)
-    spec = serving_policy(policy, arms_cfg=arms_cfg, pool_every=pool_every)
+    spec = lane_specs(serving_policy(policy, arms_cfg=arms_cfg,
+                                     pool_every=pool_every), 1).to(device)
     mach = _machine32(machine, device)
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     zf = lambda: torch.zeros((), **f32)
     zi = lambda: torch.zeros((), **i32)
     return TieredPool(
-        spec=spec.to(device),
+        spec=spec,
         state=spec.init(n, k, tree_map(lambda x: x.unsqueeze(0), mach)),
         in_fast=torch.zeros((n,), dtype=torch.bool, device=device),
         slot=torch.arange(n, **i32),
@@ -130,7 +145,8 @@ def init_pool(policy, n: int, k: int, machine=DEFAULT_MACHINE,
         promoted_at=torch.full((n,), -(10 ** 9), **i32),
         demoted_at=torch.full((n,), -(10 ** 9), **i32),
         promos=zi(), demos=zi(), waste=zi(),
-        wall_s=zf(), wall_flat_s=zf(), mach=mach, t=0)
+        wall_s=zf(), wall_flat_s=zf(), mach=mach, t=0,
+        period=spec.fire_period())
 
 
 def serving_interval_outcome(mach, read_fast, read_slow, up_bytes=0.0,
@@ -153,6 +169,24 @@ def pool_signals(pool: TieredPool):
     _, app_raw = serving_interval_outcome(pool.mach, pool.read_fast,
                                           pool.read_slow)
     return slow_bw, torch.clamp(app_raw, 0.0, 1.0)
+
+
+def pool_tier_util(pool: TieredPool):
+    """f32 [2] per-tier read-time share of the window wall: the serving
+    mirror of ``simjax.tier_utilization_impl`` for tier-native specs."""
+    br = pool.mach.bw_read
+    t0 = pool.read_fast / br[0]
+    t1 = pool.read_slow / br[1]
+    wall = torch.clamp_min(torch.maximum(t0, t1), _EPS)
+    return torch.stack([t0, t1]) / wall
+
+
+def pool_fires(pool: TieredPool) -> bool:
+    """Is the policy pass due on the pool's current interval?  From the
+    host cadence, or (``period`` None) the spec's flag read once."""
+    if pool.period is None:
+        return bool(pool.spec.fires(pool.state))
+    return pool.period > 0 and pool.t % pool.period == 0
 
 
 def pool_observe(pool: TieredPool, access, read_fast=0.0,
@@ -203,15 +237,35 @@ def pool_fire(pool: TieredPool, *, k: int, bufs=(), copy_back: bool = True,
     n = pool.in_fast.shape[0]
     dev = pool.in_fast.device
     pad_p, pad_d = spec.pad_promote(n, k), spec.pad_demote(n, k)
-    if not spec.fires_at(pool.t):
+    if not pool_fires(pool):
         return pool, bufs, _skip_plan(n, pad_p, pad_d, dev)
     i32 = torch.int32
     f32 = torch.float32
 
     slow_bw, app_bw = pool_signals(pool)
-    state, promote, demote = spec.policy(pool.state, slow_bw[None],
-                                         app_bw[None], k)
-    promote, demote = promote[0], demote[0]
+    if type(spec).tier_native:
+        # the two-tier chain seen directly; the targeted moves collapse to
+        # promote (dst 0) / demote (any deeper dst) lists, priority order
+        caps = torch.full((1, 2), n, dtype=i32, device=dev)
+        caps[:, 0] = k
+        state, pages, dst = spec.tier_policy(
+            pool.state, pool_tier_util(pool)[None], slow_bw[None],
+            app_bw[None], k, caps)
+        pm = pages.shape[1]
+        pos = torch.arange(pm, dtype=f32, device=dev)[None]
+        valid = pages >= 0
+
+        def pick(mask, pad):
+            at, _ = ranked_take(pos, mask, pad)
+            return torch.where(at >= 0, pages.gather(
+                1, at.clamp(0, pm - 1).long()), SENTINEL)[0]
+
+        promote = pick(valid & (dst == 0), pad_p)
+        demote = pick(valid & (dst != 0), pad_d)
+    else:
+        state, promote, demote = spec.policy(pool.state, slow_bw[None],
+                                             app_bw[None], k)
+        promote, demote = promote[0], demote[0]
     in_fast, pexec, dexec = simjax.apply_padded_migrations(
         pool.in_fast[None], promote[None], demote[None], k)
     in_fast, pexec, dexec = in_fast[0], pexec[0], dexec[0]
@@ -229,14 +283,18 @@ def pool_fire(pool: TieredPool, *, k: int, bufs=(), copy_back: bool = True,
     p_dst = free_order[p_rank.clamp(0, k - 1).long()]
     slot = _set(slot, promote, p_dst, pexec)
 
-    # --- data movement: two launches over every buffer, demotions first --
-    if bufs:
+    # --- data movement: demotions first, then promotions, one launch
+    # over the buffers of each row shape ---------------------------------
+    groups = {}
+    for buf in bufs:
+        groups.setdefault((buf.dtype, tuple(buf.shape[1:])), []).append(buf)
+    for group in groups.values():
         if copy_back:
             migrate_ops.migrate_rows(
-                bufs, d_src.clamp(0, k - 1).to(i32),
+                group, d_src.clamp(0, k - 1).to(i32),
                 torch.where(dexec, k + demote, SENTINEL).to(i32), dexec)
         migrate_ops.migrate_rows(
-            bufs, k + promote.clamp(0, n - 1).to(i32),
+            group, k + promote.clamp(0, n - 1).to(i32),
             torch.where(pexec, p_dst, SENTINEL).to(i32), pexec)
 
     # --- telemetry (device-side; simulator semantics) --------------------

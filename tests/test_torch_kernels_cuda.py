@@ -383,6 +383,32 @@ def test_migrate_rows_same_tensor_two_pools(card):
     assert torch.equal(kc.cpu(), kw) and torch.equal(vc.cpu(), vw)
 
 
+# deepseek-v2-236b's routed experts (d_model 5,120, expert d_ff 1,536, bf16):
+# a ``wi`` row [5120, 3072] is 31.5 MB (960 CHUNK_BYTES slices of
+# ``blockIdx.x``), a ``wo`` row [1536, 5120] 15.7 MB
+SLAB_ROWS = [(5120, 3072), (1536, 5120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", SLAB_ROWS, ids=["wi", "wo"])
+def test_migrate_rows_at_expert_slab_rows(card, row):
+    """The expert tier's promotion: home rows (after 3 fast slots) copied
+    up into fast slots of one fused pool, one launch."""
+    g = torch.Generator(device=card).manual_seed(sum(row))
+    pool = torch.randn((3 + 6,) + row, generator=g, device=card,
+                       dtype=torch.bfloat16)
+    si = torch.tensor([3 + 4, 3 + 0, 3 + 5], dtype=torch.int32)
+    di = torch.tensor([1, 0, 2], dtype=torch.int32)
+    va = torch.tensor([True, True, False])
+    want = pool.cpu()
+    _launches("migrate", lambda: mops.migrate_rows(
+        (pool,), si.to(card), di.to(card), va.to(card)))
+    mops.migrate_rows((want,), si, di, va)
+    assert torch.equal(pool.cpu(), want)
+    assert torch.equal(want[1], want[3 + 4]) and torch.equal(want[0],
+                                                             want[3])
+
+
 # ---------------------------------------------------------- paged attention
 def _paged_on_card(card, case, dtype=torch.float32):
     q, k, v, tab, lens = case

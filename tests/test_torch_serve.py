@@ -8,7 +8,8 @@
   fast-mass share within 1e-6.
 * ``serve()`` on the CPU: report fields of the right shapes and the K and
   V slow pools diverge (the port of ``TestKVDivergence``); ``device=None``
-  means the card and raises without one; what is not ported raises.
+  means the card and raises without one; an unknown policy and what is
+  not ported (the rest of the model families) raise.
 """
 import jax
 import jax.numpy as jnp
@@ -94,12 +95,8 @@ def test_serve_defaults_to_the_card_and_rejects_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             S.serve("granite-8b", n_tokens=4, batch=1, quiet=True)
-    with pytest.raises(NotImplementedError,
-                       match="--capture is not ported yet"):
-        S.serve("granite-8b", 4, 1, capture=True, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="the rest of the serving stack"):
-        S.serve("granite-8b", 4, 1, policy="memtis", device="cpu")
+    with pytest.raises(ValueError, match="unknown policy"):
+        S.serve("granite-8b", 4, 1, policy="lru", device="cpu")
     with pytest.raises(NotImplementedError,
                        match="the rest of the model families"):
         S.serve("llama4-scout", 4, 1, device="cpu")

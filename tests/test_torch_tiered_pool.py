@@ -157,12 +157,20 @@ def test_apply_padded_migrations_matches_jax(n, k, P, D):
 
 
 def test_only_arms_serves():
-    for name in ("memtis", "hybridtier"):
-        with pytest.raises(NotImplementedError,
-                           match="the rest of the serving stack"):
-            TP.init_pool(name, 8, 3, device="cpu")
+    """``"arms"`` alone resolves to the serving spec (fixed cadence, read
+    once on the host); the other names are the registry's families, and
+    an unknown name raises."""
     spec = TP.serving_policy("ARMS", pool_every=4)
-    assert spec.pool_every == 4 and spec.fires_at(8) and not spec.fires_at(9)
+    assert type(spec).__name__ == "ARMSServeSpec"
+    assert spec.pool_every == 4 and spec.fire_period() == 4
+    pool = TP.init_pool("arms", 8, 3, pool_every=4, device="cpu")
+    assert pool.period == 4 and type(pool.spec) is type(spec)
+    for name in ("memtis", "hybridtier"):
+        assert TP.serving_policy(name).name == name
+        assert type(TP.init_pool(name, 8, 3, device="cpu").spec) \
+            is not type(spec)
+    with pytest.raises(ValueError, match="unknown policy"):
+        TP.serving_policy("lru")
 
 
 def test_write_token_keeps_streams_distinct():
