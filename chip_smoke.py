@@ -20,14 +20,19 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      lane, and the top-k mask at the synthesis oracle's nine rows, lines
      of their own; the migrations also at TPP's plan widths,
      12 promotions and 8,192 demotions, and the oracle's, 8,192 each,
-     lines of their own); the page
-     migration and paged attention at the serving paths' full-width
-     shapes (fused K/V pools of 8 fast + 32 home pages of 4 tokens x 8
-     sequences x 8 KV heads x 128, a fire of 8 demotions + 8 promotions;
+     lines of their own); the migration fire (one launch a fire) and
+     paged attention at the serving paths' full-width shapes (fused K/V
+     pools of 8 fast + 32 home pages of 4 tokens x 8 sequences x 8 KV
+     heads x 128; a fire of 8 demotions + 8 promotions, every promotion
+     into a slot the fire vacates, and one of 4 + 4 into other slots;
      attention at pos = 127 over 32 pages with 256 folded query heads); the
-     migration at deepseek-v2-236b's expert slab rows (``wi`` [5120,
-     3072] bf16, 31.5 MB a row; ``wo`` [1536, 5120], 15.7 MB), 8
-     promotions into a fused [8 + 16]-row pool;
+     fire at deepseek-v2-236b's expert slab rows (``wi`` [5120, 3072]
+     bf16, 31.5 MB a row, and ``wo`` [1536, 5120], 15.7 MB, in ONE
+     launch), 8 promotions into fused [8 + 16]-row pools; the fire with
+     its home pools pinned on the host (``host_offload.to_slow_tier(...,
+     "memkind")``), at the serving fold and for 8 ``wi`` promotions from a
+     16-row home, bound by the host link's rate (PCIe Gen5 x16, 64 GB/s
+     each way) beside one ``copy_`` of the same bytes from pinned memory;
      the single-row fused score update at n = 2^20 and 2^24 pages (on no
      path of the main path: its launches here must be nonzero, its JSON
      row's are 0); flash attention forward and backward (bf16 on the
@@ -49,7 +54,8 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      and 216 lanes, bit for bit the same (2 and 3 tiers);
   3. main path, thirty-seven paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
-     been launched): ``sweep_arms_configs`` over a 16-lane
+     been launched, and ``migrate`` exactly once a fire of a tiered pool
+     with buffers to move): ``sweep_arms_configs`` over a 16-lane
      ``alpha_s x noise_z`` grid on ``pmem-large`` at n = 65,536,
      k = 8,192, T = 1,024 (cut from 2,048) with the streaming
      reduction; ``arms_sim`` on the 3-tier ``dram-cxl-pmem`` at T = 512
@@ -227,6 +233,7 @@ from repro_torch.simulator import (engine, experiment,  # noqa: E402
                                    scenarios, search, tuning, workload_spec)
 from repro_torch.tiering import embedding_tiering as ET  # noqa: E402
 from repro_torch.tiering import expert_tiering as XT  # noqa: E402
+from repro_torch.tiering import host_offload as HO  # noqa: E402
 from repro_torch.tiering import paged_kv as PK  # noqa: E402
 from repro_torch.tiering import tiered_pool as TP  # noqa: E402
 from repro_torch.tiering.sparse_attention import (  # noqa: E402
@@ -240,6 +247,9 @@ from repro_torch.utils.pytree import (flatten_with_path, leaves,  # noqa: E402
 from repro_torch.utils.pytree import take_lanes, unflatten  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+# the host link each way: PCIe Gen5 x16, 128 GB/s both ways (H100 SXM
+# data sheet)
+PCIE_BYTES_PER_S = 64e9
 L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -321,10 +331,18 @@ def copies(args, bytes_: int):
             return a
         if a.dim() == 2 and a.stride(0) == 0:
             return a[0].clone()[None].expand(a.shape)
-        return a.clone()
+        return pinned_copy(a) if a.is_pinned() else a.clone()
 
     n = min(32, max(2, -(-2 * L2_BYTES // bytes_)))
     return [args] + [tuple(clone(a) for a in args) for _ in range(n - 1)]
+
+
+def pinned_copy(x):
+    """A copy of ``x`` in pinned host memory (``clone()`` of a pinned
+    tensor is not pinned)."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+    require(out.is_pinned(), "a pinned copy is not pinned")
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -337,8 +355,9 @@ def nbytes(*ts) -> int:
     return total
 
 
-def bound(bytes_: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+def bound(bytes_: int, ops: int, ops_per_s: float = F32_OPS_PER_S,
+          bytes_per_s: float = HBM_BYTES_PER_S):
+    t_bytes = bytes_ / bytes_per_s * 1e3
     t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -364,21 +383,27 @@ def require(cond: bool, what: str):
 
 
 # ------------------------------------------------------------ kernel phase
-def kernel_phase(dev, rng):
-    rows = {}
+def make_entry(rows: dict):
+    """-> ``entry``, which holds a kernel to its plain version, times both
+    (and a library call) and keeps the first line of each kernel in
+    ``rows`` (the JSON line's)."""
 
     def entry(name, shape, kern, plain, args, exact, bytes_, ops, lib=None,
-              abs_tol=None, fresh=None, timed=True):
+              abs_tol=None, fresh=None, timed=True,
+              bytes_per_s=HBM_BYTES_PER_S):
         """Not ``exact``: within 1e-6 relative, or with ``abs_tol``
         within it absolutely and relatively above 1.  ``fresh(args)``
         gives the inputs for each of kernel and plain where the function
         updates an input in place.  ``lib`` is a function of the same
         arguments or ``(function, prep)`` with ``prep(args)`` its
         arguments (made before timing).  ``timed=False`` holds the kernel
-        to the plain version only (a cluster configuration's line)."""
+        to the plain version only (a cluster configuration's line).
+        ``bytes_per_s``: the rate ``bytes_`` are bound by (the host link's
+        for a pool in pinned host memory)."""
         as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
         fresh = fresh or (lambda a: a)
         got, want = as_tuple(kern(*fresh(args))), as_tuple(plain(*fresh(args)))
+        torch.cuda.synchronize()   # pinned outputs are written by the card
         err = max_err(got, want)
         if exact:
             require(err == 0.0, f"{name}: kernel differs from plain ({err})")
@@ -392,7 +417,7 @@ def kernel_phase(dev, rng):
             print(f"kernel {name} ({shape}): max_abs_err={err} (held, not "
                   f"timed)", flush=True)
             return
-        bms, by = bound(bytes_, ops)
+        bms, by = bound(bytes_, ops, bytes_per_s=bytes_per_s)
         sets = copies(args, bytes_)
         ms, plain_ms = cuda_ms(kern, sets), cuda_ms(plain, sets)
         if lib is not None and not isinstance(lib, tuple):
@@ -411,6 +436,12 @@ def kernel_phase(dev, rng):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
+    return entry
+
+
+def kernel_phase(dev, rng):
+    rows = {}
+    entry = make_entry(rows)
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     # every lane count of the main path: the sweep's 16 lanes (the JSON
     # line's shape; also sweep_seeds'), arms_sim's one and the synthesis
@@ -492,6 +523,7 @@ def kernel_phase(dev, rng):
     account_lane_rows(f, rng, dev)
     serving_rows(entry, f, rng)
     slab_rows(entry, rng, dev)
+    offload_rows(entry, rng, dev)
     score_rows(rows, entry, f, rng)
     flash_rows(rows, rng)
     mamba_rows(rows, rng)
@@ -740,43 +772,78 @@ def score_rows(rows, entry, f, rng):
 PF, NP, PG, SB, SH, SKV, DH = 8, 32, 4, 8, 32, 8, 128
 
 
+def fire_tables(rng, fast: int, home: int, moves: int, vacate=True):
+    """A fire's slot tables (i32 numpy): ``moves`` slots demoted to unique
+    home rows and refilled by promotions of other unique home rows
+    (``vacate``; else only the promotions, into ``moves`` slots), -1
+    elsewhere; and the library yardstick's row moves within a fused
+    ``[fast + home, ...]`` pool, demotions first."""
+    rows = rng.permutation(home)
+    slots = rng.permutation(fast)[:moves]
+    out_row, in_row = np.full(fast, -1, np.int32), np.full(fast, -1, np.int32)
+    if vacate:
+        out_row[slots] = rows[moves:2 * moves]
+    in_row[rng.permutation(slots)] = rows[:moves]
+    d, p = np.flatnonzero(out_row >= 0), np.flatnonzero(in_row >= 0)
+    lib = (d, fast + out_row[d], fast + in_row[p], p)
+    return out_row, in_row, tuple(m.astype(np.int32) for m in lib)
+
+
+def fire_kernel(*a):
+    """The fire over fused pools ``a[:-6]`` (``[k + n, ...]``; ``k`` the
+    tables' length) and tables ``a[-6:-4]``: one launch."""
+    pools, (out_row, in_row) = a[:-6], a[-6:-4]
+    k = out_row.shape[0]
+    mkernel.migrate_fire([p[:k] for p in pools], [p[k:] for p in pools],
+                         out_row, in_row)
+    return pools
+
+
+def fire_plain(*a):
+    pools, (out_row, in_row) = a[:-6], a[-6:-4]
+    k = out_row.shape[0]
+    mref.migrate_fire_ref([p[:k] for p in pools], [p[k:] for p in pools],
+                          out_row, in_row)
+    return pools
+
+
+def fire_library(*a):
+    """``index_select`` + ``index_copy_`` of the same rows, a call a pool
+    and direction."""
+    pools, (d_src, d_dst, p_src, p_dst) = a[:-6], a[-4:]
+    for src, dst in ((d_src, d_dst), (p_src, p_dst)):
+        if src.numel():
+            for pool in pools:
+                pool.index_copy_(0, dst.long(), pool.index_select(
+                    0, src.long()))
+    return pools
+
+
 def serving_rows(entry, f, rng):
     idx = lambda a: f(np.asarray(a, np.int32))
     pools = tuple(f(rng.standard_normal((PF + NP, PG, SB * SKV * DH),
                                         dtype=np.float32)) for _ in (0, 1))
-    # a fire: 8 demotions (fast slot -> home row), then 8 promotions (home
-    # row -> a vacated fast slot), each one launch over the K and V pools
-    demoted = rng.choice(NP, 8, replace=False)
-    promoted = rng.choice(np.setdiff1d(np.arange(NP), demoted), 8,
-                          replace=False)
-    fire = (idx(np.arange(8)), idx(PF + demoted), idx(PF + promoted),
-            idx(rng.permutation(8)), f(np.ones(8, bool)))
-
-    def fire_kernel(k, v, d_src, d_dst, p_src, p_dst, ok):
-        mkernel.migrate((k, v), (k, v), d_src, d_dst, ok)
-        mkernel.migrate((k, v), (k, v), p_src, p_dst, ok)
-        return k, v
-
-    def fire_plain(k, v, d_src, d_dst, p_src, p_dst, ok):
-        for src, dst in ((d_src, d_dst), (p_src, p_dst)):
-            for pool in (k, v):
-                mref.migrate_ref(pool, pool, src, dst, ok)
-        return k, v
-
-    def fire_library(k, v, d_src, d_dst, p_src, p_dst, ok):
-        for src, dst in ((d_src, d_dst), (p_src, p_dst)):
-            for pool in (k, v):
-                pool.index_copy_(0, dst.long(), pool.index_select(
-                    0, src.long()))
-        return k, v
-
     row_bytes = PG * SB * SKV * DH * 4
-    entry("migrate", f"pools 2 x [{PF + NP}, {PG}, {SB * SKV * DH}] f32, "
-          f"8 demotions + 8 promotions", fire_kernel, fire_plain,
-          pools + fire, True, 2 * 2 * 16 * row_bytes + 4 * 8 * 4 + 8, 0,
-          fire_library, fresh=lambda a: (a[0].clone(), a[1].clone()) + a[2:])
+    fresh = lambda a: (a[0].clone(), a[1].clone()) + a[2:]
+    # a fire: every fast slot demoted (slot -> home row) and refilled by a
+    # promotion (home row -> the vacated slot), ONE launch over K and V;
+    # then a fire of 4 demotions and 4 promotions into other slots
+    for moves, timed in ((PF, True), (PF // 2, False)):
+        out_row, in_row, lib_idx = fire_tables(rng, PF, NP, moves)
+        if not timed:
+            in_row = np.roll(in_row, 1)
+            lib_idx = ()
+        args = pools + tuple(idx(t) for t in (out_row, in_row)) + tuple(
+            idx(t) for t in lib_idx or [[]] * 4)
+        entry("migrate", f"pools 2 x [{PF + NP}, {PG}, {SB * SKV * DH}] f32, "
+              f"{moves} demotions + {moves} promotions"
+              + (", every promotion into a vacated slot" if timed else ""),
+              fire_kernel, fire_plain, args, True,
+              2 * 2 * 2 * moves * row_bytes + 2 * PF * 4, 0, fire_library,
+              fresh=fresh, timed=timed)
 
-    # attention at pos = 511: 32 valid pages, 8 of them fast
+    # attention at pos = 127: 32 valid pages, 8 of them fast
+    idx = lambda a: f(np.asarray(a, np.int32))
     H, KV = SB * SH, SB * SKV
     kp = pools[0].view(PF + NP, PG, KV, DH)
     vp = pools[1].view(PF + NP, PG, KV, DH)
@@ -810,34 +877,98 @@ def serving_rows(entry, f, rng):
 
 # deepseek-v2-236b's routed experts at published widths (d_model 5,120,
 # expert d_ff 1,536, bf16): a promotion copies a home slab into a fast
-# slot of the fused pools, one launch a weight (``wi`` rows [5120, 3072],
-# 31.5 MB; ``wo`` rows [1536, 5120], 15.7 MB)
+# slot of the fused pools, ONE launch for both weights (``wi`` rows
+# [5120, 3072], 31.5 MB; ``wo`` rows [1536, 5120], 15.7 MB)
 SLAB_FAST, SLAB_HOME, SLAB_MOVES = 8, 16, 8
 
 
-def slab_rows(entry, rng, dev):
+def slab_shapes():
     cfg = registry.get_arch("deepseek-v2-236b")
     D, F = cfg.d_model, cfg.moe_d_ff
+    return (("wi", (D, 2 * F)), ("wo", (F, D)))
+
+
+def slab_rows(entry, rng, dev):
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    pools = tuple(torch.randn((SLAB_FAST + SLAB_HOME,) + row, generator=g,
+                              device=dev, dtype=torch.bfloat16)
+                  for _, row in slab_shapes())
+    out_row, in_row, lib_idx = fire_tables(rng, SLAB_FAST, SLAB_HOME,
+                                           SLAB_MOVES, vacate=False)
     idx = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    for nm, row in (("wi", (D, 2 * F)), ("wo", (F, D))):
-        pool = torch.randn((SLAB_FAST + SLAB_HOME,) + row, generator=g,
-                           device=dev, dtype=torch.bfloat16)
-        home = rng.choice(SLAB_HOME, SLAB_MOVES, replace=False)
-        args = (pool, idx(SLAB_FAST + home),
-                idx(rng.permutation(SLAB_FAST)[:SLAB_MOVES]),
-                torch.ones(SLAB_MOVES, dtype=torch.bool, device=dev))
-        row_bytes = pool[0].numel() * 2
-        entry("migrate", f"expert slabs: {nm} pool [{SLAB_FAST + SLAB_HOME}, "
-              f"{row[0]}, {row[1]}] bf16 ({row_bytes / 1e6:.1f} MB a row, "
-              f"{-(-row_bytes // 32768)} chunks), {SLAB_MOVES} promotions",
-              lambda p, si, di, ok: mkernel.migrate([p], [p], si, di, ok)[0],
-              lambda p, si, di, ok: mref.migrate_ref(p, p, si, di, ok),
-              args, True, 2 * SLAB_MOVES * row_bytes + 9 * SLAB_MOVES, 0,
-              lambda p, si, di, ok: p.index_copy_(
-                  0, di.long(), p.index_select(0, si.long())),
-              fresh=lambda a: (a[0].clone(),) + a[1:])
-        del pool, args
+    args = pools + (idx(out_row), idx(in_row)) + tuple(map(idx, lib_idx))
+    row_bytes = [p[0].numel() * 2 for p in pools]
+    entry("migrate", "expert slabs: " + ", ".join(
+        f"{nm} pool [{SLAB_FAST + SLAB_HOME}, {row[0]}, {row[1]}] bf16 "
+        f"({rb / 1e6:.1f} MB a row)" for (nm, row), rb in zip(
+            slab_shapes(), row_bytes)) + f", {SLAB_MOVES} promotions, one "
+        f"launch", fire_kernel, fire_plain, args, True,
+        2 * SLAB_MOVES * sum(row_bytes) + 2 * SLAB_FAST * 4, 0, fire_library,
+        fresh=lambda a: tuple(p.clone() for p in a[:2]) + a[2:])
+    del pools, args
+    torch.cuda.empty_cache()
+
+
+def offload_rows(entry, rng, dev):
+    """The fire with its home pools in pinned host memory
+    (``host_offload.to_slow_tier(..., "memkind")``), over the host link:
+    the serving fold's fire (K and V, every promotion into a vacated slot)
+    and 8 promotions of ``wi`` slabs from a pinned home of 16 rows.  Bound:
+    the bytes each way over the link's rate; yardstick: one ``copy_`` of
+    the same bytes from pinned memory with ``non_blocking=True``."""
+    require(HO.supports_memkind(), "host offload: no pinned host memory")
+    idx = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    def kern(*a):
+        n = len(a) // 2 - 1
+        mkernel.migrate_fire(a[:n], a[n:2 * n], a[-2], a[-1])
+        return a[:2 * n]
+
+    def plain(*a):
+        """The plain fire on the card over the home pools staged there and
+        copied back."""
+        n = len(a) // 2 - 1
+        on_card = [h.to(dev, non_blocking=True) for h in a[n:2 * n]]
+        mref.migrate_fire_ref(a[:n], on_card, a[-2], a[-1])
+        for h, c in zip(a[n:2 * n], on_card):
+            h.copy_(c, non_blocking=True)
+        return a[:2 * n]
+
+    def copy_engine(args, link_bytes):
+        """One ``copy_`` of ``link_bytes`` from pinned memory to the card."""
+        src = torch.empty(link_bytes, dtype=torch.uint8, pin_memory=True)
+        return (src, torch.empty(link_bytes, dtype=torch.uint8, device=dev))
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    F_ = SB * SKV * DH
+    cases = [("serving fold", [(PG, F_), (PG, F_)], torch.float32, PF, NP,
+              PF, True)]
+    cases += [("expert slabs: wi", [slab_shapes()[0][1]], torch.bfloat16,
+               SLAB_FAST, SLAB_HOME, SLAB_MOVES, False)]
+    for label, rows, dt, k, n, moves, vacate in cases:
+        fasts = tuple(torch.randn((k,) + r, generator=g, device=dev).to(dt)
+                      for r in rows)
+        homes = tuple(HO.to_slow_tier(torch.randn(
+            (n,) + r, generator=g, device=dev).to(dt), "memkind")
+            for r in rows)
+        require(all(h.is_pinned() and h.device.type == "cpu"
+                    for h in homes), "host offload: a home is not pinned")
+        out_row, in_row, _ = fire_tables(rng, k, n, moves, vacate)
+        args = fasts + homes + (idx(out_row), idx(in_row))
+        row_bytes = sum(f[0].numel() * f.element_size() for f in fasts)
+        up = int((in_row >= 0).sum()) * row_bytes
+        down = int((out_row >= 0).sum()) * row_bytes
+        entry("migrate", f"host link: {label}, home pools "
+              f"{[tuple(h.shape) for h in homes]} {str(dt)[6:]} pinned, "
+              f"{down // row_bytes} demotions + {up // row_bytes} "
+              f"promotions, one launch", kern, plain, args, True,
+              max(up, down), 0, (lambda s, d: d.copy_(s, non_blocking=True),
+                                 lambda a, b=up + down: copy_engine(a, b)),
+              fresh=lambda a, m=len(fasts): tuple(
+                  x.clone() for x in a[:m]) + tuple(
+                  pinned_copy(x) for x in a[m:2 * m]) + a[2 * m:],
+              bytes_per_s=PCIE_BYTES_PER_S)
+        del fasts, homes, args
         torch.cuda.empty_cache()
 
 
@@ -1207,13 +1338,33 @@ SCAN_KERNELS = ("ewma_update", "topk_mask", "tier_migrate",
 SERVE_KERNELS = ("ewma_update", "topk_mask", "migrate", "paged_attention")
 
 
+#: fires of a tiered pool with buffers to move since ``counted`` last set
+#: it to 0 (``count_fires``): each must be ONE ``migrate`` launch
+FIRES = [0]
+
+
+def count_fires():
+    """Wrap ``tiered_pool.pool_fire`` (which ``pool_step`` calls through
+    the module) so that each fire due with buffers to move adds one to
+    FIRES."""
+    fire = TP.pool_fire
+
+    def counting(pool, *, k, bufs=(), **kw):
+        if bufs and k > 0 and TP.pool_fires(pool):
+            FIRES[0] += 1
+        return fire(pool, k=k, bufs=bufs, **kw)
+
+    TP.pool_fire = counting
+
+
 def counted(label: str, run, path_kernels=SCAN_KERNELS):
-    """Drive one path of the main path with every launch count set to 0
-    just before it and read just after; each kernel of the path must have
-    been launched.  -> (result, wall seconds, launch counts of every
-    kernel)."""
+    """Drive one path of the main path with every launch count (and
+    FIRES) set to 0 just before it and read just after; each kernel of the
+    path must have been launched, and ``migrate`` once a fire.  ->
+    (result, wall seconds, launch counts of every kernel)."""
     torch.cuda.synchronize()
     _backend.reset_launches()
+    FIRES[0] = 0
     t0 = time.time()
     out = run()
     torch.cuda.synchronize()
@@ -1221,6 +1372,12 @@ def counted(label: str, run, path_kernels=SCAN_KERNELS):
     counts = {nm: int(_backend.launches.get(nm, 0)) for nm in KERNELS}
     for nm in path_kernels:
         require(counts[nm] > 0, f"{nm} was not launched by {label}")
+    require(counts["migrate"] == FIRES[0],
+            f"{label}: {counts['migrate']} migrate launches for "
+            f"{FIRES[0]} fires")
+    if FIRES[0]:
+        print(f"fires {label}: {FIRES[0]} fires, {counts['migrate']} "
+              f"migrate launches (one a fire)", flush=True)
     return out, wall, counts
 
 
@@ -2622,7 +2779,7 @@ def profiled(label: str, run, top: int = 12):
 
 # the port's own kernels, by the names their sources give them
 PORT_KERNEL = re.compile(r"(void )?(ewma_update|interval_account|tier_migrate"
-                         r"|topk_mask|migrate_kernel|pa_|fa_|ms_)"
+                         r"|topk_mask|migrate_fire|pa_|fa_|ms_)"
                          r"[a-z_0-9]*[<(]")
 
 
@@ -3026,6 +3183,7 @@ def main():
 
     rows, held = kernel_phase(dev, np.random.default_rng(args.seed))
     stamp("kernel phase")
+    count_fires()
     by_path = main_path(args.seed, held)
     stamp("main path")
     for nm, row in rows.items():   # launches: every path of the main path

@@ -1,38 +1,33 @@
-"""Dispatch of the batched page migration: the tensor's device decides.
+"""Dispatch of the migration fire: the fast pool's device decides.
 
-A pool on the CPU goes to the plain version (ref.py); a CUDA pool goes to
-the hand-written kernel (kernel.py), whose wrapper raises on anything it
-cannot take.  There is no switch that pins the plain version on the card
-and no fallback from a failed build or launch.
+A fast pool on the CPU goes to the plain version (ref.py); a fast pool on
+the card goes to the hand-written kernel (kernel.py), whatever its home
+pool is (on the card, or pinned on the host), and the wrapper raises on
+anything it cannot take.  There is no switch that pins the plain version
+on the card and no fallback from a failed build or launch.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.migrate import kernel, ref
 
 
-def _on_card(t) -> bool:
-    if t.device.type in ("cuda", "cpu"):
-        return t.device.type == "cuda"
-    raise ValueError(f"migrate runs on cuda or cpu, not {t.device}")
-
-
-def migrate(src_pool, dst_pool, src_idx, dst_idx, valid):
-    """``dst_pool[dst_idx[i]] = src_pool[src_idx[i]]`` where ``valid[i]``,
-    in place (``migrate/ref.py::migrate_ref``); returns ``dst_pool``."""
-    if _on_card(dst_pool):
-        return kernel.migrate([src_pool], [dst_pool], src_idx, dst_idx,
-                              valid)[0]
-    return ref.migrate_ref(src_pool, dst_pool, src_idx, dst_idx, valid)
-
-
-def migrate_rows(pools, src_idx, dst_idx, valid):
-    """Move rows within each pool of ``pools`` (one launch for all):
-    ``pool[dst_idx[i]] = pool[src_idx[i]]`` where ``valid[i]``.  The valid
-    source and destination rows must be disjoint."""
-    pools = tuple(pools)
-    if _on_card(pools[0]):
-        kernel.migrate(pools, pools, src_idx, dst_idx, valid)
-    else:
-        for p in pools:
-            ref.migrate_ref(p, p, src_idx, dst_idx, valid)
-    return pools
+def migrate_fire(fasts, homes, out_row, in_row) -> None:
+    """One fire of the tiered pool, in place, for every pool p and fast
+    slot s: ``homes[p][out_row[s]] = fasts[p][s]`` (the demotions'
+    copy-back), then ``fasts[p][s] = homes[p][in_row[s]]`` (the
+    promotions); -1 or out-of-range entries move nothing
+    (``ref.migrate_fire_ref``).  On the card: one launch for every pool."""
+    fasts, homes = list(fasts), list(homes)
+    if not fasts:
+        return
+    dev = fasts[0].device
+    if dev.type == "cuda":
+        kernel.migrate_fire(fasts, homes, out_row, in_row)
+        return
+    if dev.type != "cpu":
+        raise ValueError(f"migrate runs on cuda or cpu, not {dev}")
+    for t in fasts + homes + [out_row, in_row]:
+        if t.device.type != "cpu":
+            raise ValueError(f"migrate_fire: a fast pool on the CPU beside "
+                             f"a tensor on {t.device}")
+    ref.migrate_fire_ref(fasts, homes, out_row, in_row)

@@ -1,7 +1,11 @@
-"""Plain PyTorch version of the batched page migration.
+"""Plain PyTorch version of the migration fire.
 
 The contract of the CUDA kernel (kernel.py) and what the op runs for
-tensors on the CPU: the port of ``repro/kernels/migrate/ref.py``.
+tensors on the CPU.  ``migrate_ref`` is the port of
+``repro/kernels/migrate/ref.py`` (one batch of row moves);
+``migrate_fire_ref`` is a fire of the tiered pool built from two of them,
+the demotions' copy-back first, as ``repro/tiering/tiered_pool.py``'s
+``move`` does on its separate fast and slow arrays.
 """
 from __future__ import annotations
 
@@ -37,3 +41,17 @@ def migrate_ref(src_pool, dst_pool, src_idx, dst_idx, valid):
                        dst_pool.index_select(0, at[:1] * 0)[0])
     keep = valid.view((-1,) + (1,) * (rows.dim() - 1))
     return dst_pool.index_copy_(0, at, torch.where(keep, rows, row0))
+
+
+def migrate_fire_ref(fasts, homes, out_row, in_row):
+    """For every pool p and slot s < k, in place: ``homes[p][out_row[s]] =
+    fasts[p][s]``, then ``fasts[p][s] = homes[p][in_row[s]]``; an entry that
+    is -1 or out of range moves nothing.  Pools and tables on one device
+    (kernel.py's contract otherwise); no host sync."""
+    k = out_row.shape[0]
+    if k == 0:
+        return
+    slots = torch.arange(k, dtype=torch.int32, device=out_row.device)
+    for fast, home in zip(fasts, homes):
+        migrate_ref(fast, home, slots, out_row, out_row >= 0)
+        migrate_ref(home, fast, in_row, slots, in_row >= 0)

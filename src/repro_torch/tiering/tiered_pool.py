@@ -13,15 +13,17 @@ Binary families emit promote/demote plans; the tier-native families
 utilization) and their targeted moves collapse to promote (destination
 0) and demote (any deeper destination) lists in priority order.
 
-The data move goes through the ``migrate`` op (the hand-written CUDA
-kernel on the card): each moved buffer is ONE tensor ``[k + n, ...]``
+The data move goes through the ``migrate_fire`` op (the hand-written
+CUDA kernel on the card): each moved buffer is ONE tensor ``[k + n, ...]``
 holding the fast rows first and the slow rows (indexed by page id, the
 home-slot invariant) after them, where the JAX package keeps two arrays
-``(fast [k, ...], slow [n, ...])``.  A fire is a launch for the
-demotions' copy-back (fast slot -> home row), then one for the
-promotions (home row -> free fast slot), over every buffer of one row
-shape at once, in stream order, since a promotion may land in a slot
-that a demotion of the same fire vacated.
+``(fast [k, ...], slow [n, ...])``; the op takes the two views of it.  A
+fire is ONE launch over every buffer, of any row shape, driven by two
+slot-indexed tables built on the device: the home row each fast slot is
+copied back to (the demotions; all -1 with ``copy_back=False``) and the
+home row copied into it (the promotions).  The kernel moves a slot's bytes
+out before it moves them in, so a promotion may land in a slot that a
+demotion of the same fire vacated.
 
 The fire decision is the host's: ``init_pool`` reads the spec's
 ``fire_period`` once (ARMS's ``pool_every``, a family's
@@ -214,6 +216,16 @@ def _set(x, idx, val, valid):
         val, torch.Tensor) else val[None], valid[None])[0]
 
 
+def _slot_table(k: int, slots, rows, ok):
+    """i32 ``[k]``: ``rows[i]`` at fast slot ``slots[i]`` where ``ok[i]``,
+    -1 elsewhere (executed moves have unique slots); no host sync."""
+    tab = torch.full((k + 1,), SENTINEL, dtype=torch.int32,
+                     device=rows.device)
+    tab.index_put_((torch.where(ok, slots.clamp(0, k - 1), k).long(),),
+                   torch.where(ok, rows, SENTINEL).to(torch.int32))
+    return tab[:k]
+
+
 def _skip_plan(n: int, pad_p: int, pad_d: int, device) -> PoolPlan:
     i32 = dict(dtype=torch.int32, device=device)
     return PoolPlan(
@@ -283,19 +295,15 @@ def pool_fire(pool: TieredPool, *, k: int, bufs=(), copy_back: bool = True,
     p_dst = free_order[p_rank.clamp(0, k - 1).long()]
     slot = _set(slot, promote, p_dst, pexec)
 
-    # --- data movement: demotions first, then promotions, one launch
-    # over the buffers of each row shape ---------------------------------
-    groups = {}
-    for buf in bufs:
-        groups.setdefault((buf.dtype, tuple(buf.shape[1:])), []).append(buf)
-    for group in groups.values():
-        if copy_back:
-            migrate_ops.migrate_rows(
-                group, d_src.clamp(0, k - 1).to(i32),
-                torch.where(dexec, k + demote, SENTINEL).to(i32), dexec)
-        migrate_ops.migrate_rows(
-            group, k + promote.clamp(0, n - 1).to(i32),
-            torch.where(pexec, p_dst, SENTINEL).to(i32), pexec)
+    # --- data movement: one launch over every buffer; per fast slot the
+    # demotion's copy-back (slot -> home row) before the promotion (home
+    # row -> slot) ---------------------------------------------------------
+    if bufs:
+        out_row = _slot_table(k, d_src, demote, dexec) if copy_back \
+            else torch.full((k,), SENTINEL, dtype=i32, device=dev)
+        migrate_ops.migrate_fire(
+            [b[:k] for b in bufs], [b[k:] for b in bufs], out_row,
+            _slot_table(k, p_dst, promote, pexec))
 
     # --- telemetry (device-side; simulator semantics) --------------------
     n_up = pexec.sum(dtype=i32)

@@ -5,8 +5,11 @@ Run on a machine with an NVIDIA GPU and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_kernels_cuda.py
 
-The interval-step kernels and the page migration must equal the plain
-version exactly: the masks, tiers, counts and copied rows are exact, the
+The interval-step kernels and the migration fire must equal the plain
+version exactly (the fire over pools on the card and homes pinned on the
+host, one launch a fire through ``pool_step``, repeated random fires, a
+pinned home dropped while its fire runs; host offload's ``memkind``
+pins): the masks, tiers, counts and copied rows are exact, the
 EWMA is op for op the same f32 arithmetic (the kernels build with
 ``-fmad=false``), and the accounting sums round once from f64 on both
 sides.  Paged attention sums in another order than the plain version:
@@ -335,58 +338,136 @@ from repro_torch.kernels.migrate import ops as mops  # noqa: E402
 from repro_torch.kernels.migrate import ref as mref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pref  # noqa: E402
+from repro_torch.tiering import host_offload as HO  # noqa: E402
+from repro_torch.tiering import tiered_pool as TP  # noqa: E402
+
+
+def fire_case(k, n, row, seed, dtype=np.float32, vacated=False):
+    """(fast [k, *row], home [n, *row], out_row, in_row) numpy arrays of a
+    fire: demotions of some slots to unique home rows, promotions of other
+    unique home rows into some slots (``vacated``: exactly the demoted
+    ones), and in unused entries -1 or rows past the home pool."""
+    rng = np.random.default_rng(seed)
+    fast = (rng.standard_normal((k,) + row) * 100).astype(dtype)
+    home = (rng.standard_normal((n,) + row) * 100).astype(dtype)
+    pages = rng.permutation(n)
+    nd = int(rng.integers(1, min(k, n // 2) + 1))
+    d_slots = rng.choice(k, nd, replace=False)
+    rest = pages[nd:]
+    if vacated:
+        p_slots = d_slots[:min(nd, len(rest))]
+    else:
+        p_slots = rng.choice(k, int(rng.integers(1, min(k, len(rest)) + 1)),
+                             replace=False)
+    out_row = np.full(k, -1, np.int32)
+    in_row = np.full(k, -1, np.int32)
+    out_row[d_slots] = pages[:nd]
+    in_row[p_slots] = rest[:len(p_slots)]
+    out_row[(out_row < 0) & (rng.random(k) < 0.5)] = n + 3
+    in_row[(in_row < 0) & (rng.random(k) < 0.5)] = n
+    return fast, home, out_row, in_row
+
+
+def _fire_on_card(card, case, pinned=False):
+    """The kernel's fire (one launch) and the plain fire on the CPU: ->
+    ((fast, home) from the card, (fast, home) plain)."""
+    fast, home, out_row, in_row = (_t(a) for a in case)
+    f = fast.to(card)
+    h = home.pin_memory() if pinned else home.to(card)
+    assert _launches("migrate", lambda: mkernel.migrate_fire(
+        [f], [h], out_row.to(card), in_row.to(card))) is True
+    mref.migrate_fire_ref([fast], [home], out_row, in_row)
+    return (f.cpu(), h.cpu()), (fast, home)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float16])
 @pytest.mark.parametrize("shape", MIGRATE_SHAPES)
 def test_migrate_pages_kernel_vs_plain(card, shape, dtype):
-    src, dst, si, di, va = migrate_pools_case(*shape, seed=sum(shape),
-                                              dtype=dtype)
-    d_card = _t(dst).to(card)
-    _launches("migrate", lambda: mkernel.migrate(
-        [_t(src).to(card)], [d_card], _t(si).to(card), _t(di).to(card),
-        _t(va).to(card)))
-    want = mref.migrate_ref(_t(src), _t(dst), _t(si), _t(di), _t(va))
-    assert torch.equal(d_card.cpu(), want)
+    """Bit for bit at the port's test shapes: odd row sizes of 4 and 2
+    bytes."""
+    Ps, Pd, _, page, feat = shape
+    got, want = _fire_on_card(card, fire_case(Pd, Ps, (page, feat),
+                                              sum(shape), dtype))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# row bytes at and around the 16 KiB chunk and the 4 KiB smallest chunk,
+# at slot counts that do and do not shrink the chunk
+CHUNK_ROWS = [(4, 9, 1024), (8, 20, 1023), (3, 7, 4096), (4, 9, 4100),
+              (2, 5, 3 * 4096 + 3), (64, 130, 4096), (16, 40, 8192 + 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vacated", [False, True], ids=["free", "vacated"])
+@pytest.mark.parametrize("k,n,words", CHUNK_ROWS)
+def test_fire_kernel_at_chunk_boundaries(card, k, n, words, vacated):
+    got, want = _fire_on_card(card, fire_case(k, n, (words,), k + words,
+                                              vacated=vacated))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [False, True], ids=["card", "pinned"])
+def test_fire_every_promotion_into_a_vacated_slot(card, pinned):
+    """The case that breaks a naive single launch: every slot is demoted
+    and refilled in the same fire (the serving fold's 8 fast pages), with
+    the home on the card and pinned on the host."""
+    k, n, row = 8, 32, (4, 8 * 8 * 128)
+    fast, home, _, _ = fire_case(k, n, row, 5)
+    pages = np.random.default_rng(6).permutation(n)
+    case = (fast, home, pages[:k].astype(np.int32),
+            pages[k:2 * k].astype(np.int32))
+    got, want = _fire_on_card(card, case, pinned)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(got[0], _t(home)[_t(case[3]).long()])
+    assert torch.equal(got[1][_t(case[2]).long()], _t(fast))
 
 
 @pytest.mark.cuda
 def test_migrate_empty_and_all_invalid(card):
-    src, dst, si, di, va = migrate_pools_case(8, 8, 4, 4, 32, seed=3)
-    d_card = _t(dst).to(card)
+    """An empty plan (k = 0) launches nothing; tables of -1 and rows past
+    the pool launch once and copy nothing."""
+    fast, home, _, _ = fire_case(4, 8, (4, 32), 3)
+    f, h = _t(fast).to(card), _t(home).to(card)
     before = _backend.launches["migrate"]
     e = torch.zeros((0,), dtype=torch.int32, device=card)
-    mkernel.migrate([_t(src).to(card)], [d_card], e, e, e.bool())
-    assert _backend.launches["migrate"] == before   # M = 0: no launch
-    _launches("migrate", lambda: mkernel.migrate(
-        [_t(src).to(card)], [d_card], _t(si).to(card), _t(di).to(card),
-        torch.zeros(4, dtype=torch.bool, device=card)))
-    assert torch.equal(d_card.cpu(), _t(dst))
+    assert mkernel.migrate_fire([f[:0]], [h], e, e) is False
+    assert _backend.launches["migrate"] == before   # k = 0: no launch
+    for fill in (-1, 8):
+        tab = torch.full((4,), fill, dtype=torch.int32, device=card)
+        _launches("migrate", lambda: mops.migrate_fire([f], [h], tab, tab))
+    assert torch.equal(f.cpu(), _t(fast)) and torch.equal(h.cpu(), _t(home))
 
 
 @pytest.mark.cuda
 def test_migrate_rows_same_tensor_two_pools(card):
-    """The serving layer's move: fast rows first, one launch over K and V,
-    disjoint source and destination rows within each pool."""
-    rng = np.random.default_rng(11)
-    k = rng.standard_normal((40, 16, 8 * 8 * 16)).astype(np.float32)
-    v = rng.standard_normal((40, 16, 8 * 8 * 16)).astype(np.float32)
-    si = np.array([0, 2, 5, -1, 7], np.int32)
-    di = np.array([8 + 3, 8 + 30, 8 + 9, -1, 8 + 1], np.int32)
-    va = np.array([True, True, False, False, True])
-    kc, vc = _t(k).to(card), _t(v).to(card)
-    _launches("migrate", lambda: mops.migrate_rows(
-        (kc, vc), _t(si).to(card), _t(di).to(card), _t(va).to(card)))
-    kw, vw = _t(k), _t(v)
-    mops.migrate_rows((kw, vw), _t(si), _t(di), _t(va))
-    assert torch.equal(kc.cpu(), kw) and torch.equal(vc.cpu(), vw)
+    """The serving layer's fire: K and V fused ``[k + n, ...]`` tensors,
+    one launch over both through views, demotions and promotions."""
+    k, n = 8, 32
+    fast, home, out_row, in_row = fire_case(k, n, (16, 8 * 8 * 16), 11)
+    fused = [np.concatenate([fast, home]),
+             np.concatenate([fast, home])[::-1].copy()]
+    on_card = [_t(b).to(card) for b in fused]
+    tabs = [_t(out_row), _t(in_row)]
+    _launches("migrate", lambda: mops.migrate_fire(
+        [b[:k] for b in on_card], [b[k:] for b in on_card],
+        *(t.to(card) for t in tabs)))
+    want = [_t(b) for b in fused]
+    mops.migrate_fire([b[:k] for b in want], [b[k:] for b in want], *tabs)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(on_card, want))
 
 
 # deepseek-v2-236b's routed experts (d_model 5,120, expert d_ff 1,536, bf16):
-# a ``wi`` row [5120, 3072] is 31.5 MB (960 CHUNK_BYTES slices of
-# ``blockIdx.x``), a ``wo`` row [1536, 5120] 15.7 MB
+# a ``wi`` row [5120, 3072] is 31.5 MB (1,920 chunks of 16 KiB), a ``wo``
+# row [1536, 5120] 15.7 MB
 SLAB_ROWS = [(5120, 3072), (1536, 5120)]
+
+
+def _slab_pools(card, rows, fast, home):
+    g = torch.Generator(device=card).manual_seed(sum(rows[0]))
+    return [torch.randn((fast + home,) + r, generator=g, device=card,
+                        dtype=torch.bfloat16) for r in rows]
 
 
 @pytest.mark.cuda
@@ -394,19 +475,174 @@ SLAB_ROWS = [(5120, 3072), (1536, 5120)]
 def test_migrate_rows_at_expert_slab_rows(card, row):
     """The expert tier's promotion: home rows (after 3 fast slots) copied
     up into fast slots of one fused pool, one launch."""
-    g = torch.Generator(device=card).manual_seed(sum(row))
-    pool = torch.randn((3 + 6,) + row, generator=g, device=card,
-                       dtype=torch.bfloat16)
-    si = torch.tensor([3 + 4, 3 + 0, 3 + 5], dtype=torch.int32)
-    di = torch.tensor([1, 0, 2], dtype=torch.int32)
-    va = torch.tensor([True, True, False])
+    pool, = _slab_pools(card, [row], 3, 6)
     want = pool.cpu()
-    _launches("migrate", lambda: mops.migrate_rows(
-        (pool,), si.to(card), di.to(card), va.to(card)))
-    mops.migrate_rows((want,), si, di, va)
+    none = torch.full((3,), -1, dtype=torch.int32)
+    in_row = torch.tensor([0, 4, -1], dtype=torch.int32)
+    _launches("migrate", lambda: mkernel.migrate_fire(
+        [pool[:3]], [pool[3:]], none.to(card), in_row.to(card)))
+    mops.migrate_fire([want[:3]], [want[3:]], none, in_row)
     assert torch.equal(pool.cpu(), want)
     assert torch.equal(want[1], want[3 + 4]) and torch.equal(want[0],
                                                              want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [False, True], ids=["card", "pinned"])
+def test_fire_pools_of_two_row_shapes_one_launch(card, pinned):
+    """``wi`` and ``wo`` moved by ONE launch (their two row shapes), with a
+    demotion and promotions into the vacated slot; homes on the card, or
+    pinned on the host."""
+    k = 3
+    pools = _slab_pools(card, SLAB_ROWS, k, 5)
+    want = [p.cpu() for p in pools]
+    homes = [HO.to_slow_tier(p[k:], "memkind") if pinned else p[k:]
+             for p in pools]
+    out_row = torch.tensor([-1, 2, -1], dtype=torch.int32)
+    in_row = torch.tensor([4, 0, 1], dtype=torch.int32)
+    _launches("migrate", lambda: mkernel.migrate_fire(
+        [p[:k] for p in pools], homes, out_row.to(card), in_row.to(card)))
+    mops.migrate_fire([w[:k] for w in want], [w[k:] for w in want], out_row,
+                      in_row)
+    for p, h, w in zip(pools, homes, want):
+        assert torch.equal(p[:k].cpu(), w[:k]) and torch.equal(h.cpu(),
+                                                               w[k:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vacated", [False, True], ids=["free", "vacated"])
+def test_fire_home_pinned_on_the_host(card, vacated):
+    """A home pool in pinned host memory (``host_offload.to_slow_tier``),
+    in both directions: demotions write it, promotions read it over the
+    host link; beside a pool whose home is on the card, one launch."""
+    k, n, row = 8, 32, (4, 8 * 8 * 128)
+    fast, home, out_row, in_row = fire_case(k, n, row, 13, vacated=vacated)
+    assert (out_row[out_row < n] >= 0).any() and (in_row[in_row < n]
+                                                  >= 0).any()
+    f = [_t(fast).to(card), _t(fast).to(card)]
+    h = [HO.to_slow_tier(_t(home), "memkind"), _t(home).to(card)]
+    assert h[0].is_pinned() and h[0].device.type == "cpu"
+    _launches("migrate", lambda: mops.migrate_fire(
+        f, h, _t(out_row).to(card), _t(in_row).to(card)))
+    wf, wh = _t(fast), _t(home)
+    mref.migrate_fire_ref([wf], [wh], _t(out_row), _t(in_row))
+    for fi, hi in zip(f, h):
+        assert torch.equal(fi.cpu(), wf) and torch.equal(hi.cpu(), wh)
+    got, want = _fire_on_card(card, (fast, home, out_row, in_row),
+                              pinned=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_fire_keeps_a_dropped_pinned_home_until_the_stream_is_past_it(card):
+    """A fire whose demotions write a pinned home, queued behind a spin of
+    the stream; the caller drops the home at once and pins a buffer of the
+    same size, which the host fills.  The wrapper recorded the fire with
+    the caching host allocator, so the new buffer is not the home's block
+    and keeps the host's bytes after the stream is done."""
+    k, n, words = 8, 16, 1 << 18
+    fast = torch.randn((k, words), device=card)
+    home = HO.to_slow_tier(torch.zeros((n, words)), "memkind")
+    out_row = torch.arange(k, dtype=torch.int32, device=card)
+    none = torch.full((k,), -1, dtype=torch.int32, device=card)
+    mkernel.migrate_fire([fast], [home], none, none)   # built before the spin
+    torch.cuda.synchronize()
+    before = _backend.launches["migrate"]
+    torch.cuda._sleep(200_000_000)   # about 0.1 s of the stream
+    assert mkernel.migrate_fire([fast], [home], out_row, none) is True
+    del home                         # no sync until the host's fill is done
+    fresh = torch.empty((n, words), pin_memory=True)
+    fresh.fill_(7.0)
+    torch.cuda.synchronize()
+    assert _backend.launches["migrate"] == before + 1
+    assert bool((fresh == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [False, True], ids=["card", "pinned"])
+def test_fire_random_plans_repeated(card, pinned):
+    """Many fires in a row over pools of random row sizes (16-, 4- and
+    1-byte words: f16 rows of an odd length, at and around the chunks),
+    half of them refilling every slot they vacate, each bit for bit the
+    plain fire: a race between blocks or threads would show as a
+    differing fire."""
+    rng = np.random.default_rng(41)
+    for i in range(120):
+        k = int(rng.integers(1, 17))
+        n = int(rng.integers(2 * k + 2, 4 * k + 8))
+        words = int(rng.choice([3, 257, 1024, 1031, 4096, 4100, 8 * 1024,
+                                32 * 1024 + 1]))
+        case = fire_case(k, n, (words,), int(rng.integers(1 << 30)),
+                         (np.float32, np.int32, np.float16)[i % 3],
+                         vacated=bool(i % 2))
+        got, want = _fire_on_card(card, case, pinned)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+
+
+@pytest.mark.cuda
+def test_fire_refuses_what_it_cannot_take(card):
+    fast = torch.zeros((2, 64), device=card)
+    tab = torch.full((2,), -1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="pinned"):
+        mops.migrate_fire([fast], [torch.zeros((4, 64))], tab, tab)
+    with pytest.raises(TypeError):
+        mkernel.migrate_fire([fast], [torch.zeros((4, 64), device=card,
+                                                  dtype=torch.int32)],
+                             tab, tab)
+    with pytest.raises(ValueError):
+        mkernel.migrate_fire([fast], [torch.zeros((4, 64), device=card)],
+                             tab[:1], tab[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copy_back", [True, False], ids=["copy", "nocopy"])
+def test_pool_fire_one_launch_a_fire(card, copy_back):
+    """``pool_step`` on the card: exactly one ``migrate`` launch a fire for
+    buffers of two row shapes, none between fires, and the card's pools,
+    plans and residency bit for bit the CPU's."""
+    n, k, every, T = 13, 4, 3, 45
+    rng = np.random.default_rng(29)
+    fused = [(rng.standard_normal((k + n, 2, 36)) * 9).astype(np.float32),
+             rng.integers(-99, 99, (k + n, 5)).astype(np.int32)]
+    runs = {}
+    for dev in ("cpu", card):
+        pool = TP.init_pool("arms", n, k, pool_every=every, device=dev)
+        bufs = tuple(_t(b).to(dev) for b in fused)
+        rng_t = np.random.default_rng(31)
+        steps = []
+        for t in range(T):
+            access = rng_t.random(n).astype(np.float32)
+            access[(np.arange(3) + 4 * (t // 15)) % n] += 20.0
+            before = _backend.launches["migrate"]
+            pool, bufs, plan = TP.pool_step(pool, _t(access).to(dev), 1.0,
+                                            1.0, k=k, bufs=bufs,
+                                            copy_back=copy_back)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                fired = pool.period > 0 and pool.t % pool.period == 0
+                assert _backend.launches["migrate"] - before == int(fired)
+            steps.append([x.cpu().clone() for x in (
+                plan.promote, plan.demote, pool.in_fast, pool.slot) + bufs])
+        runs[str(dev)] = steps
+    for a, b in zip(runs["cpu"], runs[str(card)]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(pool.promos) > k and int(pool.demos) > 0
+
+
+@pytest.mark.cuda
+def test_host_offload_memkind_on_card(card):
+    """``memkind`` on a card: a pinned host copy, and a tensor back on the
+    card, same values, dtype and shape; ``buffer`` returns its input."""
+    assert HO.supports_memkind()
+    x = torch.randn((5, 7), device=card).to(torch.bfloat16)
+    h = HO.to_slow_tier(x, "memkind")
+    assert h.device.type == "cpu" and h.is_pinned()
+    assert h.dtype == x.dtype and torch.equal(h, x.cpu())
+    assert HO.to_slow_tier(h, "memkind") is h
+    back = HO.to_fast_tier(h, "memkind")
+    assert back.device.type == "cuda" and torch.equal(back, x)
+    assert HO.to_slow_tier(x, "buffer") is x
+    assert HO.to_slow_tier(x.cpu(), "memkind").is_pinned()
 
 
 # ---------------------------------------------------------- paged attention
@@ -564,15 +800,13 @@ def test_paged_attention_serve_fold_bf16(card, pos):
 def test_out_of_range_indices_stay_inside_the_pools(card):
     """Migrate skips entries with an out-of-range index; paged attention
     clamps out-of-range table entries; both as their plain versions."""
-    src, dst, si, di, va = migrate_pools_case(9, 7, 5, 3, 5, seed=21)
-    va[:] = True
-    si[1], di[3] = 9, -2
-    d_card = _t(dst).to(card)
-    _launches("migrate", lambda: mkernel.migrate(
-        [_t(src).to(card)], [d_card], _t(si).to(card), _t(di).to(card),
-        _t(va).to(card)))
-    want = mref.migrate_ref(_t(src), _t(dst), _t(si), _t(di), _t(va))
-    assert torch.equal(d_card.cpu(), want)
+    src, dst, _, _, _ = migrate_pools_case(9, 7, 5, 3, 5, seed=21)
+    out_row = np.array([9, -2, 12, 40, -1, 2, 10], np.int32)
+    in_row = np.array([-5, 9, 99, -1, 10, 3, 2 ** 31 - 1], np.int32)
+    got, want = _fire_on_card(card, (dst, src, out_row, in_row))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(got[1][2], _t(dst)[5]) and torch.equal(got[0][5],
+                                                             _t(src)[3])
     case = list(paged_case(2, 8, 4, 128, 16, 4, seed=3))
     case[3][0, 1] = case[1].shape[0] + 5
     (out, mass), (w_out, w_mass) = _paged_on_card(card, case)

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke.py`` (a fresh interpreter) pulls in neither JAX nor any
-module of the JAX package ``repro``."""
+"""The port stands alone: importing every module of ``repro_torch`` (host
+offload among them) and ``chip_smoke.py`` (a fresh interpreter) pulls in
+neither JAX nor any module of the JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -19,7 +19,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(len(names), "repro_torch.tiering.host_offload" in names, bad)
 """
 
 
@@ -29,6 +29,6 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 20
+    n_modules, offload, bad = proc.stdout.strip().split(" ", 2)
+    assert int(n_modules) >= 20 and offload == "True"
     assert bad == "[]", f"port imported {bad}"

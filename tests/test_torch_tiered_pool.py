@@ -127,6 +127,41 @@ def test_moving_hot_set_demotes_and_copies_back():
     assert int(pool.promos) > k and int(pool.demos) > 0
 
 
+@pytest.mark.parametrize("copy_back", [True, False], ids=["copy", "nocopy"])
+def test_pool_fire_fused_matches_jax_split(copy_back):
+    """Two buffers of other row shapes and dtypes (an expert's ``wi`` and
+    ``wo``) moved by one fire each interval on the fused ``[k + n, ...]``
+    layout, against JAX's split ``(fast, slow)`` arrays, exactly."""
+    n, k, every, T = 13, 4, 3, 60
+    jpool = JTP.init_pool("arms", n, k, pool_every=every)
+    pool = convert.tiered_pool(jax.tree_util.tree_map(np.asarray, jpool),
+                               device="cpu")
+    rng = np.random.default_rng(23)
+    split = [((rng.standard_normal((k, 2, 7)) * 9).astype(np.float32),
+              (rng.standard_normal((n, 2, 7)) * 9).astype(np.float32)),
+             (rng.integers(-99, 99, (k, 5)).astype(np.int32),
+              rng.integers(-99, 99, (n, 5)).astype(np.int32))]
+    jbufs = tuple((jnp.asarray(f), jnp.asarray(s)) for f, s in split)
+    bufs = tuple(_t(np.concatenate([f, s])) for f, s in split)
+    jstep = jax.jit(JTP.pool_step,
+                    static_argnames=("k", "copy_back", "page_bytes"))
+    for t in range(T):
+        hot = (np.arange(3) + 4 * (t // 15)) % n
+        access = rng.random(n).astype(np.float32)
+        access[hot] += 20.0
+        jpool, jbufs, jplan = jstep(jpool, jnp.asarray(access), 1.0, 1.0,
+                                    k=k, bufs=jbufs, copy_back=copy_back,
+                                    page_bytes=64.0)
+        pool, bufs, plan = TP.pool_step(pool, _t(access), 1.0, 1.0, k=k,
+                                        bufs=bufs, copy_back=copy_back,
+                                        page_bytes=64.0)
+        _same_plan(jplan, plan, t)
+        for (jf, js), b in zip(jbufs, bufs):
+            np.testing.assert_array_equal(b.numpy(), np.concatenate(
+                [np.asarray(jf), np.asarray(js)]), err_msg=f"t={t}")
+    assert int(pool.promos) > k and int(pool.demos) > 0
+
+
 @pytest.mark.parametrize("n,k,P,D", [(8, 3, 8, 8), (37, 9, 12, 5),
                                      (64, 16, 64, 64)])
 def test_apply_padded_migrations_matches_jax(n, k, P, D):
