@@ -1,10 +1,12 @@
 """Serving launcher with a policy-tiered paged KV cache, in torch.
 
-The port of ``repro/launch/serve.py``: batched greedy decoding of a dense
-architecture (reduced by default, ``--full`` for the published widths
-and depth) while the KV pages of attention layer 0 live in a two-tier
-paged cache placed by ANY registered placement policy (``--policy``,
-every family of ``experiment.POLICY_REGISTRY``), written, attended,
+The port of ``repro/launch/serve.py``: batched greedy decoding of a
+dense, vlm, hybrid or MoE (GQA) architecture (reduced by default,
+``--full`` for the published widths and depth; SSM models are refused,
+as the JAX launcher refuses them) while the KV pages of one attention
+layer live in a two-tier paged cache placed by ANY registered placement
+policy (``--policy``, every family of ``experiment.POLICY_REGISTRY``),
+written, attended,
 observed and migrated every token.  It reports throughput and the
 robustness leaderboard's telemetry: modeled tiered-vs-all-fast wall
 ratio, wasteful-migration fraction, promotions/demotions.
@@ -19,9 +21,11 @@ pool's ``policy_every``.  Weights are random, drawn from a
 generator seeded by ``--seed``, so a card run and a CPU run see the same
 streams.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --full --tokens 512 --batch 8 --policy memtis --capture /tmp/kv.npz
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llava-next-mistral-7b --full --tokens 128 --batch 8
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.tiering import paged_kv as PK
 from repro_torch.tiering import tiered_pool as TP
@@ -99,17 +104,18 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def setup(arch: str, n_tokens: int, batch: int, full: bool = False,
+def setup(arch, n_tokens: int, batch: int, full: bool = False,
           page_size: int = 16, fast_frac: float = 0.25, seed: int = 0,
           policy: str = "arms", machine: str = TP.DEFAULT_MACHINE,
           device=None, params=None):
     """The serving loop's starting state on ``device`` (``None``: the
-    CUDA card): ``(cfg, params, pk_cfg, kv, cache, draw)``.  ``params``
-    defaults to random weights from a generator on ``device`` seeded by
-    ``seed``; ``draw`` is ``draw_stream`` over a CPU generator seeded by
-    ``seed``."""
+    CUDA card): ``(cfg, params, pk_cfg, kv, cache, draw)``.  ``arch`` is
+    a registry name or a ``ModelConfig`` (a published config cut in
+    depth, say).  ``params`` defaults to random weights from a generator
+    on ``device`` seeded by ``seed``; ``draw`` is ``draw_stream`` over a
+    CPU generator seeded by ``seed``."""
     device = resolve_device(device)
-    cfg = registry.get_arch(arch)
+    cfg = arch if isinstance(arch, ModelConfig) else registry.get_arch(arch)
     if not full:
         cfg = registry.reduced(cfg)
     if cfg.family in ("ssm",):
@@ -133,20 +139,21 @@ def setup(arch: str, n_tokens: int, batch: int, full: bool = False,
     return cfg, params, pk_cfg, kv, cache, draw
 
 
-def serve(arch: str, n_tokens: int, batch: int, full: bool = False,
+def serve(arch, n_tokens: int, batch: int, full: bool = False,
           page_size: int = 16, fast_frac: float = 0.25, seed: int = 0,
           policy: str = "arms", machine: str = TP.DEFAULT_MACHINE,
           sync_telemetry: bool = False, capture: bool = False,
           quiet: bool = False, device=None, params=None) -> ServeReport:
     """Decode ``n_tokens`` greedy tokens for ``batch`` sequences on
     ``device`` (``None``: the CUDA card) with layer 0's KV cache tiered
-    by ``policy``; ``params`` as ``setup`` takes them.  ``capture=True``
-    returns the access trace in ``ServeReport.trace``."""
+    by ``policy``; ``arch`` and ``params`` as ``setup`` takes them.
+    ``capture=True`` returns the access trace in ``ServeReport.trace``."""
     device = resolve_device(device)
     t_init = time.time()
     cfg, params, pk_cfg, kv, cache, draw = setup(
         arch, n_tokens, batch, full, page_size, fast_frac, seed, policy,
         machine, device, params)
+    arch = arch if isinstance(arch, str) else cfg.name
     _sync(device)
     init_s = time.time() - t_init
 

@@ -3,12 +3,12 @@
 The port of ``repro/launch/steps.py``.  Gradients are taken with
 ``torch.autograd.grad`` with respect to detached aliases of the stacked
 param leaves, so the caller's tensors stay plain tensors and AdamW
-updates them in place.  With ``grad_accum > 1`` the batch's leading axis
-is cut into that many micro-batches (a Python loop where JAX scans) and
-their gradients are summed in f32, bounding live activation memory.  The
-activation-sharding constraint and the mesh arguments belong to the
-launch layer, which is not ported (the JAX-specific launch layer,
-ROADMAP queue 1).
+updates them in place.  With ``grad_accum > 1`` the leading axis of
+every batch entry (a vlm's ``patch_embeds`` too) is cut into that many
+micro-batches (a Python loop where JAX scans) and their gradients are
+summed in f32, bounding live activation memory.  The activation-sharding
+constraint and the mesh arguments belong to the launch layer, which is
+not ported (the JAX-specific launch layer).
 """
 from __future__ import annotations
 

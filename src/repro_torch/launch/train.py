@@ -1,27 +1,32 @@
 """End-to-end training launcher, in torch.
 
-The port of ``repro/launch/train.py`` for the dense and ssm families:
-config registry, synthetic data pipeline with prefetch, the train step
-(gradient accumulation + AdamW with an f32 master copy), async
-checkpointing with restart in the JAX store's format, preemption
-handling (SIGTERM -> checkpoint -> clean exit) and straggler monitoring
-(ARMS EWMA/PHT on per-host step times).  On the card, every dense
-layer's attention runs on the hand-written flash attention kernels and
-every mamba layer's SSD scan on the hand-written ``mamba_scan``
-kernels, forward and backward.
+The port of ``repro/launch/train.py`` for the dense, vlm, ssm, hybrid
+and MoE (GQA) families: config registry, synthetic data pipeline with
+prefetch, the train step (gradient accumulation + AdamW with an f32
+master copy), async checkpointing with restart in the JAX store's
+format, preemption handling (SIGTERM -> checkpoint -> clean exit) and
+straggler monitoring (ARMS EWMA/PHT on per-host step times).  On the
+card, every attention layer runs on the hand-written flash attention
+kernels and every mamba layer's SSD scan on the hand-written
+``mamba_scan`` kernels, forward and backward.
 
 Reduced configs by default; ``--full`` runs the published widths and
 depth.  Weights are random, drawn from a ``torch.Generator`` on the
 device seeded by ``seed``; the batches are the JAX package's, bit for
 bit.  Batches reach the card through pinned memory without a stream
-sync, and the loss is read on the host once a step.  The other families
-(and the encdec/vlm stub inputs) raise ``NotImplementedError``.
+sync, and the loss is read on the host once a step.  A vlm's vision
+tower is stubbed as the JAX launcher stubs it: ``patch_embeds`` are f32
+zeros ``[batch, n_patches, d_model]``, made on the device.  MLA and
+enc-dec models raise ``NotImplementedError`` (the rest of the model
+families).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --full --steps 6 --batch 2 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
       --full --steps 6 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --full --steps 6 --batch 1 --seq 4096
 """
 from __future__ import annotations
 
@@ -50,10 +55,6 @@ def setup(arch: str, n_steps: int, full: bool = False, seed: int = 0,
     cfg = registry.get_arch(arch)
     if not full:
         cfg = registry.reduced(cfg)
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet (the rest of the model families, ROADMAP queue 1)")
     opt_cfg = adamw.AdamWConfig(total_steps=max(n_steps, 2),
                                 warmup_steps=max(n_steps // 10, 1))
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -70,6 +71,17 @@ def to_device(batch_np: dict, device) -> dict:
         out[k] = t.pin_memory().to(device, non_blocking=True) \
             if device.type == "cuda" else t
     return out
+
+
+def stub_inputs(cfg, batch: int, device) -> dict:
+    """The inputs of a front end the model stubs, as the JAX launcher
+    makes them: a vlm's ``patch_embeds``, f32 zeros ``[batch, n_patches,
+    d_model]`` on ``device``; none for the other families."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.zeros(
+            (batch, cfg.n_patches, cfg.d_model), dtype=torch.float32,
+            device=device)}
+    return {}
 
 
 def _n_hosts() -> int:
@@ -116,7 +128,8 @@ def train(arch: str, n_steps: int, batch: int, seq: int, ckpt_dir=None,
                     raise RuntimeError(f"prefetch gave step {step_idx}, "
                                        f"expected {i}")
                 params, opt_state, metrics = step_fn(
-                    params, opt_state, to_device(batch_np, device))
+                    params, opt_state, {**to_device(batch_np, device),
+                                        **stub_inputs(cfg, batch, device)})
                 loss = float(metrics["loss"])
                 losses.append(loss)
                 dt = time.time() - step_t0

@@ -1,18 +1,20 @@
-"""GQA attention for the dense family (plain tensor functions).
+"""GQA attention (plain tensor functions).
 
 The port of ``repro/models/attention.py``'s ``gqa_init``, ``gqa_qkv``,
-``causal_mask``, ``gqa_full``, ``gqa_decode_flat`` and ``KVCache``.  The
-full-sequence path (train, prefill) runs every sequence length through
+``causal_mask``, ``_sdpa``, ``gqa_full``, ``gqa_decode``,
+``gqa_decode_flat`` and ``KVCache``.  The full-sequence path (train,
+prefill) runs every sequence length through
 the flash attention op (``kernels/flash_attention``: the hand-written
 kernels and their gradient on the card, the plain version on the CPU),
 GQA native, where the JAX package takes its naive ``_sdpa`` below
 4,096 tokens and ``xla_flash.flash_sdpa`` from there on; all three
-compute the same function.  The decode cache is the JAX package's stacked
-KV-major ``[L, B, KV, S, dh]`` layout, written in place at
-``(layer, :, :, pos)``; scores and softmax run in f32 and the
-probabilities are cast to V's dtype before the second product.  MLA and
-cross attention wait for the rest of the model families (ROADMAP queue
-1).
+compute the same function.  Decode takes either of the JAX package's
+cache layouts: one layer's ``[B, S, KV, dh]`` (``gqa_decode``, the
+hybrid family's shared block) or the stacked KV-major ``[L, B, KV, S,
+dh]`` (``gqa_decode_flat``), each written in place at the token's slot;
+scores and softmax run in f32 and the probabilities are cast to V's
+dtype before the second product.  MLA and cross attention wait for the
+rest of the model families.
 """
 from __future__ import annotations
 
@@ -42,6 +44,20 @@ def causal_mask(sq: int, sk: int, q_offset, window: int = 0, device=None):
     if window:
         m &= kj > qi - window
     return m[None, None]
+
+
+def _sdpa(q, k, v, mask, scale: float):
+    """q ``[B, Sq, H, dh]``, k/v ``[B, Sk, KV, dh]``, mask ``[B, 1, Sq,
+    Sk]`` bool (True keeps): scores in f32, probabilities cast to V's
+    dtype."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, dh)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, k).float() * scale
+    s = torch.where(mask[:, :, None], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
+    return out.reshape(B, Sq, H, dh)
 
 
 def gqa_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
@@ -85,6 +101,31 @@ def gqa_full(p, x, cfg, *, causal: bool = True, rope: bool = True,
                                     window=window if causal else 0)
     out = L.linear(p["wo"], out.reshape(B, S, -1))
     return out, KVCache(k=k, v=v)
+
+
+def gqa_decode(p, x, cache: KVCache, pos: int, cfg, *, rope: bool = True,
+               window: int = 0):
+    """One-token decode against one layer's cache ``[B, S_max, KV, dh]``,
+    written in place at the token's slot.  With ``window`` set and
+    ``S_max <= window`` the cache is a ring buffer over the last
+    ``S_max`` positions (RoPE is baked into K at write time, so slot
+    order does not matter).  x ``[B, 1, D]``, ``pos`` a host int.
+    Returns ``(out [B, 1, D], cache)``."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = gqa_qkv(p, x, positions, cfg, rope=rope)
+    S_max = cache.k.shape[1]
+    ring = bool(window) and S_max <= window
+    slot = pos % S_max if ring else pos
+    cache.k[:, slot] = k_new[:, 0]
+    cache.v[:, slot] = v_new[:, 0]
+    kj = torch.arange(S_max, device=x.device)
+    mask = kj <= pos
+    if window and not ring:
+        mask &= kj > pos - window
+    out = _sdpa(q, cache.k, cache.v, mask.expand(B, 1, 1, S_max),
+                cfg.head_dim ** -0.5)
+    return L.linear(p["wo"], out.reshape(B, 1, -1)), cache
 
 
 def gqa_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,

@@ -1,28 +1,36 @@
-"""Model assembly: the dense and ssm families of ``repro/models/model.py``.
+"""Model assembly: the dense, vlm, ssm, hybrid and MoE (GQA) families of
+``repro/models/model.py``.
 
-API (the JAX package's, dense and ssm families):
+API (the JAX package's):
   init_params(cfg, gen=None, device=None)        -> params dict
   forward(params, batch, cfg, remat=False)       -> (logits, aux_loss)
   loss_fn(params, batch, cfg, remat=False)       -> scalar loss
   prefill(params, batch, cfg)                    -> logits
-  init_cache(cfg, bsz, s_max, device=None)       -> KVCache | MambaCache
+  init_cache(cfg, bsz, s_max, device=None)       -> the family's cache
   decode_step(params, token, cache, pos, cfg)    -> (logits, cache)
   count_params(cfg)                              -> int
-``batch``: {"tokens": [B, S], "labels": [B, S]} int tensors.
+``batch``: {"tokens": [B, S], "labels": [B, S]} int tensors, plus a vlm's
+``patch_embeds`` ``[B, n_patches, d_model]``, put before the tokens (its
+labels are padded with -1 over the patches).
 
 Params keep the JAX package's tree: ``embed``/``unembed``/``final_norm``
-and ``layers``, whose leaves carry a leading ``[L]`` layer axis.  The JAX
-package scans over that axis.  Here decode indexes it layer by layer (a
-view, no copy) and writes each layer's new cache entries (a token's K/V,
-or a mamba layer's conv window and state) into the stacked cache in
-place; the full-sequence forward takes every layer at once with
-``torch.unbind``, whose backward is one ``stack`` per leaf rather than a
-zero ``[L, ...]`` gradient per layer.  ``remat=True`` wraps each layer in
-``torch.utils.checkpoint`` (non-reentrant), the counterpart of
-``jax.checkpoint``.  A family table like the JAX package's ``_FAMILY``
-dispatches; the other families (moe, hybrid, encdec, vlm) raise
-``NotImplementedError`` until the rest of the model families (ROADMAP
-queue 1) ports them.
+and the stacked layer trees, whose leaves carry leading layer axes:
+``[L]`` for ``layers``, ``[n_super]`` for an MoE model's
+``dense_layers``/``moe_layers``, ``[n_groups, group]`` for a hybrid's
+``mamba_groups`` (and ``[tail]`` for its ``mamba_tail``), beside its one
+``shared_attn`` block.  The JAX package scans over those axes.  Here
+decode indexes them layer by layer (a view, no copy) and writes each
+layer's new cache entries (a token's K/V, or a mamba layer's conv window
+and state) into the stacked cache in place; the full-sequence forward
+takes every layer at once with ``torch.unbind`` (nested for the
+hybrid's groups), whose backward is one ``stack`` per leaf rather than a
+zero gradient of the whole stack per layer.  ``remat=True`` wraps each
+layer (a hybrid's whole group with its shared block, an MoE model's
+dense + MoE super-layer) in ``torch.utils.checkpoint`` (non-reentrant),
+the counterpart of ``jax.checkpoint``.  A family table like the JAX
+package's ``_FAMILY`` dispatches; MLA (deepseek-v2) and enc-dec
+(whisper) raise ``NotImplementedError`` until the rest of the model
+families ports them.
 """
 from __future__ import annotations
 
@@ -74,13 +82,29 @@ def _dense_block(h, p_l, cfg):
     return B.dense_block_full(p_l, h, cfg, window=cfg.sliding_window)[0]
 
 
-def _stack_forward(p, batch, cfg, block, remat: bool):
+def _embed_inputs(p, batch, cfg):
+    """Token embeddings; a vlm's ``patch_embeds``, cast to their dtype,
+    go before them."""
     x = L.embed(p["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _run(block, x, p_l, cfg, remat: bool):
+    return checkpoint(block, x, p_l, cfg, use_reentrant=False) if remat \
+        else block(x, p_l, cfg)
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _stack_forward(p, batch, cfg, block, remat: bool):
+    x = _embed_inputs(p, batch, cfg)
     for p_l in _unstack(p["layers"], cfg.n_layers):
-        x = checkpoint(block, x, p_l, cfg, use_reentrant=False) \
-            if remat else block(x, p_l, cfg)
-    return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+        x = _run(block, x, p_l, cfg, remat)
+    return _logits(p, x, cfg), _zero_aux(x)
 
 
 def _dense_forward(p, batch, cfg, remat: bool = False):
@@ -108,6 +132,59 @@ def _dense_decode(p, token, cache, pos: int, cfg):
     return _logits(p, x, cfg), cache
 
 
+# ==================================================================== MoE
+# llama4-style: alternating dense / MoE super-layers.
+def _moe_alt_init(gen, cfg, dtype, device):
+    lead = (cfg.n_layers // 2,)
+    return {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                      dtype, device),
+            "dense_layers": B.dense_block_init(
+                gen, cfg, dtype, device, lead,
+                d_ff=cfg.dense_d_ff or cfg.d_ff),
+            "moe_layers": B.moe_block_init(gen, cfg, dtype, device, lead),
+            "final_norm": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "unembed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype, device)}
+
+
+def _moe_super(h, ps, cfg):
+    """One dense + MoE super-layer -> ``(h, aux)``."""
+    pd, pm = ps
+    h = B.dense_block_full(pd, h, cfg, window=cfg.sliding_window)[0]
+    h, _, aux, _ = B.moe_block_full(pm, h, cfg, window=cfg.sliding_window)
+    return h, aux
+
+
+def _moe_alt_forward(p, batch, cfg, remat: bool = False):
+    x = _embed_inputs(p, batch, cfg)
+    aux = _zero_aux(x)
+    n_super = cfg.n_layers // 2
+    for ps in zip(_unstack(p["dense_layers"], n_super),
+                  _unstack(p["moe_layers"], n_super)):
+        x, aux_l = _run(_moe_super, x, ps, cfg, remat)
+        aux = aux + aux_l
+    return _logits(p, x, cfg), aux
+
+
+def _moe_alt_cache(cfg, bsz: int, s_max: int, dtype, device):
+    n_super = cfg.n_layers // 2
+    return {nm: _flat_kv_zeros(cfg, bsz, s_max, n_super, dtype, device)
+            for nm in ("dense", "moe")}
+
+
+def _moe_alt_decode(p, token, cache, pos: int, cfg):
+    x = L.embed(p["embed"], token)
+    w, d, m = cfg.sliding_window, cache["dense"], cache["moe"]
+    for i in range(cfg.n_layers // 2):
+        x, _, _ = B.dense_block_decode_flat(
+            _layer(p["dense_layers"], i), x, d.k, d.v, i, pos, cfg,
+            window=w)
+        x, _, _ = B.moe_block_decode_flat(
+            _layer(p["moe_layers"], i), x, (m.k, m.v), i, pos, cfg,
+            window=w)
+    return _logits(p, x, cfg), cache
+
+
 # ==================================================================== SSM
 def _ssm_init(gen, cfg, dtype, device):
     return {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
@@ -127,42 +204,139 @@ def _ssm_forward(p, batch, cfg, remat: bool = False):
     return _stack_forward(p, batch, cfg, _mamba_block, remat)
 
 
+def _mamba_zeros(cfg, bsz: int, lead: tuple, dtype, device):
+    """Zero ``MambaCache`` with leaves ``lead + [B, K-1, conv_dim]`` and
+    ``lead + [B, H, P, N]``."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return M.MambaCache(
+        conv=torch.zeros(lead + (bsz, cfg.conv_kernel - 1, conv_dim),
+                         dtype=dtype, device=device),
+        ssm=torch.zeros(lead + (bsz, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=dtype, device=device))
+
+
 def _ssm_cache(cfg, bsz: int, s_max: int, dtype, device):
     del s_max  # recurrent state: O(1) in sequence length
-    L_, conv_dim = cfg.n_layers, cfg.d_inner + 2 * cfg.ssm_state
-    return M.MambaCache(
-        conv=torch.zeros((L_, bsz, cfg.conv_kernel - 1, conv_dim),
-                         dtype=dtype, device=device),
-        ssm=torch.zeros((L_, bsz, cfg.ssm_heads, cfg.ssm_head_dim,
-                         cfg.ssm_state), dtype=dtype, device=device))
+    return _mamba_zeros(cfg, bsz, (cfg.n_layers,), dtype, device)
+
+
+def _mamba_decode(p_stack, x, cache, n: int, cfg):
+    """``n`` stacked mamba layers against their stacked ``MambaCache``
+    (updated in place)."""
+    for i in range(n):
+        x, new = B.mamba_block_decode(
+            _layer(p_stack, i), x,
+            M.MambaCache(conv=cache.conv[i], ssm=cache.ssm[i]), cfg)
+        cache.conv[i].copy_(new.conv)
+        cache.ssm[i].copy_(new.ssm)
+    return x
 
 
 def _ssm_decode(p, token, cache, pos: int, cfg):
     del pos
+    x = _mamba_decode(p["layers"], L.embed(p["embed"], token), cache,
+                      cfg.n_layers, cfg)
+    return _logits(p, x, cfg), cache
+
+
+# ================================================================= hybrid
+# zamba2-style: groups of mamba layers with ONE shared attention block
+# (weights reused at every application) after each group, then a tail.
+def _hybrid_dims(cfg):
+    group = cfg.attn_every
+    n_groups = cfg.n_layers // group
+    return group, n_groups, cfg.n_layers - n_groups * group
+
+
+def _hybrid_init(gen, cfg, dtype, device):
+    group, n_groups, tail = _hybrid_dims(cfg)
+    p = {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                   device),
+         "mamba_groups": B.mamba_block_init(gen, cfg, dtype, device,
+                                            lead=(n_groups, group)),
+         "shared_attn": B.dense_block_init(gen, cfg, dtype, device),
+         "final_norm": L.rmsnorm_init(cfg.d_model, dtype, device),
+         "unembed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                     dtype, device)}
+    if tail:
+        p["mamba_tail"] = B.mamba_block_init(gen, cfg, dtype, device,
+                                             lead=(tail,))
+    return p
+
+
+def _hybrid_group(h, pg, cfg):
+    """One group: its mamba layers, then the shared block (no window)."""
+    p_g, shared = pg
+    for p_l in _unstack(p_g, cfg.attn_every):
+        h = _mamba_block(h, p_l, cfg)
+    return B.dense_block_full(shared, h, cfg)[0]
+
+
+def _hybrid_forward(p, batch, cfg, remat: bool = False):
+    x = _embed_inputs(p, batch, cfg)
+    group, n_groups, tail = _hybrid_dims(cfg)
+    for p_g in _unstack(p["mamba_groups"], n_groups):
+        x = _run(_hybrid_group, x, (p_g, p["shared_attn"]), cfg, remat)
+    if tail:    # not under remat, as in the JAX package
+        for p_l in _unstack(p["mamba_tail"], tail):
+            x = _mamba_block(x, p_l, cfg)
+    return _logits(p, x, cfg), _zero_aux(x)
+
+
+def _hybrid_cache(cfg, bsz: int, s_max: int, dtype, device):
+    """``mamba_groups``: ``MambaCache`` with leaves ``[n_groups, group, B,
+    ...]``; ``attn``: ``KVCache`` ``[n_groups, B, S, KV, dh]``;
+    ``mamba_tail``: ``[tail, B, ...]``."""
+    group, n_groups, tail = _hybrid_dims(cfg)
+    c = {"mamba_groups": _mamba_zeros(cfg, bsz, (n_groups, group), dtype,
+                                      device),
+         "attn": A.KVCache(*(torch.zeros(
+             (n_groups, bsz, s_max, cfg.n_kv_heads, cfg.head_dim),
+             dtype=dtype, device=device) for _ in range(2)))}
+    if tail:
+        c["mamba_tail"] = _mamba_zeros(cfg, bsz, (tail,), dtype, device)
+    return c
+
+
+def _hybrid_decode(p, token, cache, pos: int, cfg):
     x = L.embed(p["embed"], token)
-    for i in range(cfg.n_layers):
-        x, new = B.mamba_block_decode(
-            _layer(p["layers"], i), x,
-            M.MambaCache(conv=cache.conv[i], ssm=cache.ssm[i]), cfg)
-        cache.conv[i].copy_(new.conv)
-        cache.ssm[i].copy_(new.ssm)
+    group, n_groups, tail = _hybrid_dims(cfg)
+    mg, kv = cache["mamba_groups"], cache["attn"]
+    for g in range(n_groups):
+        x = _mamba_decode(_layer(p["mamba_groups"], g), x,
+                          M.MambaCache(conv=mg.conv[g], ssm=mg.ssm[g]),
+                          group, cfg)
+        x, _ = B.dense_block_decode(p["shared_attn"], x,
+                                    A.KVCache(k=kv.k[g], v=kv.v[g]), pos,
+                                    cfg)
+    if tail:
+        x = _mamba_decode(p["mamba_tail"], x, cache["mamba_tail"], tail,
+                          cfg)
     return _logits(p, x, cfg), cache
 
 
 # ================================================================ dispatch
 _FAMILY = {
     "dense": (_dense_init, _dense_forward, _dense_cache, _dense_decode),
+    "vlm": (_dense_init, _dense_forward, _dense_cache, _dense_decode),
     "ssm": (_ssm_init, _ssm_forward, _ssm_cache, _ssm_decode),
+    "hybrid": (_hybrid_init, _hybrid_forward, _hybrid_cache,
+               _hybrid_decode),
 }
 
 
 def _family_fns(cfg):
+    if cfg.family == "moe" and not cfg.use_mla:
+        return (_moe_alt_init, _moe_alt_forward, _moe_alt_cache,
+                _moe_alt_decode)
     fns = _FAMILY.get(cfg.family)
     if fns is None:
+        what = "moe family with MLA" if cfg.family == "moe" \
+            else f"{cfg.family} family"
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(the rest of the model families, ROADMAP queue 1); the port "
-            f"runs the dense and ssm families")
+            f"{cfg.name}: the {what} is not ported yet (the rest of the "
+            f"model families); the port runs the dense, vlm, ssm, hybrid "
+            f"and moe (GQA) families")
     return fns
 
 
@@ -179,13 +353,18 @@ def init_params(cfg, gen: torch.Generator | None = None, device=None):
 
 def forward(params, batch, cfg, remat: bool = False):
     """Full-sequence forward -> (logits ``[B, S, V]`` in the params'
-    dtype, aux loss f32 0)."""
+    dtype, a vlm's ``S`` counting the patches; the f32 aux loss: the MoE
+    load-balancing loss summed over super-layers, else 0)."""
     return _family_fns(cfg)[1](params, batch, cfg, remat)
 
 
 def loss_fn(params, batch, cfg, remat: bool = False):
     logits, aux = forward(params, batch, cfg, remat)
-    return L.cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
+    labels = batch["labels"]
+    if cfg.family == "vlm":    # patch positions carry no labels
+        pad = labels.new_full(batch["patch_embeds"].shape[:2], -1)
+        labels = torch.cat([pad, labels], dim=1)
+    return L.cross_entropy(logits, labels, cfg.vocab_size) + aux
 
 
 def prefill(params, batch, cfg):
@@ -196,8 +375,11 @@ def prefill(params, batch, cfg):
 
 def init_cache(cfg, bsz: int, s_max: int, device=None):
     """The stacked decode cache, zeros: ``KVCache`` ``[L, B, KV, S, dh]``
-    (dense) or ``MambaCache`` (ssm: ``[L, B, K-1, conv_dim]`` and
-    ``[L, B, H, P, N]``, independent of ``s_max``)."""
+    (dense, vlm; ``S`` the window where that is shorter), ``MambaCache``
+    (ssm: ``[L, B, K-1, conv_dim]`` and ``[L, B, H, P, N]``, independent
+    of ``s_max``), ``{"dense", "moe"}`` of ``[n_super, B, KV, S, dh]``
+    (moe) or the hybrid's ``{"mamba_groups", "attn", "mamba_tail"}``
+    (``_hybrid_cache``)."""
     return _family_fns(cfg)[2](cfg, bsz, s_max, L.dtype_of(cfg),
                                resolve_device(device))
 

@@ -158,6 +158,15 @@ MAMBA_SHAPES = [(2, 128, 3, 16, 32, 32), (1, 64, 2, 64, 128, 16),
                 (3, 256, 1, 32, 64, 64), (2, 32, 4, 32, 16, 8)]
 # mamba2-370m's scan at the training path's batch 2 x 4,096 tokens.
 MAMBA_TRAIN_SHAPE = (2, 4096, 32, 64, 128, 64)
+# zamba2-1.2b's: 64 heads of 64, N 64 (one block of the backward's N walk)
+HYBRID_TRAIN_SHAPE = (2, 4096, 64, 64, 64, 64)
+# (B, S, H, KV, dh, causal, window) of the families' prefill attention:
+# llava-next-mistral-7b's 576 patches + 4,096 tokens, llama4-scout's 40
+# query heads over 8 (a group of 5) with its 8,192 window, and the same
+# heads under a window shorter than the sequence
+FAMILY_FLASH_SHAPES = [(2, 4672, 32, 8, 128, True, 0),
+                       (2, 4096, 40, 8, 128, True, 8192),
+                       (1, 2048, 40, 8, 128, True, 1024)]
 
 
 def mamba_case(B, S, H, P, N, seed, model_like=False):

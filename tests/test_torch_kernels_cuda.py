@@ -815,6 +815,7 @@ def test_out_of_range_indices_stay_inside_the_pools(card):
 
 
 # ---------------------------------------------------------- flash attention
+from _torch_cases import FAMILY_FLASH_SHAPES  # noqa: E402
 from _torch_cases import FLASH_SHAPES, flash_case  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
@@ -976,6 +977,29 @@ def test_flash_attention_bf16_tile_edges(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAMILY_FLASH_SHAPES)
+def test_flash_attention_at_the_families_prefill_shapes(card, shape):
+    """bf16 at the vlm and MoE families' prefill shapes (S 4,672, a
+    multiple of 64 with 576 patch rows in front; 40 query heads over 8
+    KV heads, with and without an effective window): the output within
+    2e-2 of the plain version in f32, each output row within 1e-2 of its
+    own norm, each gradient within 2e-2 of its largest entry, and the same
+    bits from two backward runs."""
+    B, S, H, KV, dh, causal, window = shape
+    (q, k, v, do), (out, lse, grads), (want, wgrads) = _flash_on_card(
+        card, shape, torch.bfloat16)
+    assert float((out.float() - want).abs().max()) <= 2e-2
+    row = ((out.float() - want).norm(dim=-1)
+           / want.norm(dim=-1).clamp_min(1e-30))
+    assert float(row.max()) <= 1e-2
+    _grads_within(grads, wgrads, 2e-2)
+    again = fkernel.flash_attention_bwd(q, k, v, out, lse, do,
+                                        causal=causal, window=window)
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dh", [16, 128])
 def test_flash_attention_op_routes_bf16_head_widths(card, dh):
     """``ops.flash_attention`` in bf16 at the head widths beside 64: one
@@ -1061,6 +1085,7 @@ def test_score_update_rejects_bad_inputs(card):
 
 
 # --------------------------------------------------------------- mamba scan
+from _torch_cases import HYBRID_TRAIN_SHAPE  # noqa: E402
 from _torch_cases import MAMBA_SHAPES, MAMBA_TRAIN_SHAPE  # noqa: E402
 from _torch_cases import mamba_case  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as skernel  # noqa: E402
@@ -1116,6 +1141,23 @@ def test_mamba_scan_kernel_vs_plain_f32(card, shape):
     for g, w in zip(grads, wgrads):
         assert g.dtype == w.dtype and g.shape == w.shape
         _within_of_max(g, w, 1e-4 + 8 * ulp)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_at_zamba2s_training_shape(card):
+    """zamba2-1.2b's scan (H 64, P 64, N 64: the backward's N walk is one
+    block, P the widest frame it takes) with dt and A as its init gives
+    them: forward and backward within the f32 tolerances above, and the
+    same bits from two backward runs."""
+    ins, (y, h, grads), (wy, wh, wgrads), ulp = _scan_on_card(
+        card, HYBRID_TRAIN_SHAPE, torch.float32, model_like=True)
+    _within_of_max(y, wy, 2e-5 + 4 * ulp)
+    _within_of_max(h, wh, 2e-5 + 4 * ulp)
+    for g, w in zip(grads, wgrads):
+        _within_of_max(g, w, 1e-4 + 8 * ulp)
+    again = skernel.mamba_scan_bwd(*ins, chunk=HYBRID_TRAIN_SHAPE[-1])
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
 
 
 @pytest.mark.cuda

@@ -99,6 +99,6 @@ def test_serve_defaults_to_the_card_and_rejects_what_is_not_ported():
         S.serve("granite-8b", 4, 1, policy="lru", device="cpu")
     with pytest.raises(NotImplementedError,
                        match="the rest of the model families"):
-        S.serve("llama4-scout", 4, 1, device="cpu")
+        S.serve("deepseek-v2-236b", 4, 1, device="cpu")
     with pytest.raises(SystemExit):
         S.serve("mamba2", 4, 1, device="cpu")
