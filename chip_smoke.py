@@ -27,7 +27,9 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      into a slot the fire vacates, and one of 4 + 4 into other slots;
      attention at pos = 127 over 32 pages with 256 folded query heads;
      both held, not timed, at zamba2-1.2b's fold, 32 KV heads of 64, and
-     at llama4-scout's, 40 query heads over 8 of 128); the
+     at llama4-scout's, 40 query heads over 8 of 128, at
+     deepseek-v2-236b's, 128 KV heads of 128, and at whisper-small's, 12
+     KV heads of 64); the
      fire at deepseek-v2-236b's expert slab rows (``wi`` [5120, 3072]
      bf16, 31.5 MB a row, and ``wo`` [1536, 5120], 15.7 MB, in ONE
      launch), 8 promotions into fused [8 + 16]-row pools; the fire with
@@ -41,13 +43,17 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      tensor cores, f32 on the CUDA cores) at the training path's shape
      (B = 2, S = 4,096, 32 heads of 64, bf16, causal), at granite-8b's
      GQA heads (32 over 8, dh 128, S = 2,048), windowed (1,024), and in
-     f32 (B = 1, S = 1,024, 8 heads over 2), and the forward alone at the
-     prefill shapes of llava-next-mistral-7b (B = 2, S = 576 + 4,096, 32
-     heads over 8 of 128) and llama4-scout (B = 2, S = 4,096, 40 heads
-     over 8 of 128, window 8,192), each held to the plain
-     version computed in f32 from the same inputs (the backward's lines
-     also time SDPA's backward alone, its forward outside the timed
-     region); the Mamba2 scan forward and backward in f32 at the training
+     f32 (B = 1, S = 1,024, 8 heads over 2), forward and backward at
+     deepseek-v2-236b's MLA prefill shape (B = 2, S = 4,096, 128 heads,
+     q/k width 192, v width 128), and the forward alone at the prefill
+     shapes of llava-next-mistral-7b (B = 2, S = 576 + 4,096, 32 heads
+     over 8 of 128) and llama4-scout (B = 2, S = 4,096, 40 heads over 8 of
+     128, window 8,192) and at whisper-small's encoder (B = 2, 1,500
+     frames, 12 heads of 64, non-causal), each held to the plain version
+     computed in f32 from the same inputs (the backward's lines also time
+     SDPA's backward alone, its forward outside the timed region; SDPA
+     under its fused backends only, and where none takes a row's shapes
+     the line says so); the Mamba2 scan forward and backward in f32 at the training
      paths' shapes (B = 2, S = 4,096, chunk 64: mamba2-370m's 32 heads of
      64, N = 128, and zamba2-1.2b's 64 heads of 64, N = 64),
      with the device time of each pass of one forward and one backward by
@@ -58,7 +64,7 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      and timed at the study's 216 lanes (TPP's plans at its 144), and one
      lane of the accounting kernel embedded in batches of 1, 9, 21, 168
      and 216 lanes, bit for bit the same (2 and 3 tiers);
-  3. main path, forty-four paths, each with every launch count set to 0 just
+  3. main path, forty-nine paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched, and ``migrate`` exactly once a fire of a tiered pool
      with buffers to move): ``sweep_arms_configs`` over a 16-lane
@@ -166,9 +172,17 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      at batch 2, and the ARMS serve; llama4-scout (MoE) at its published
      widths cut to one dense + MoE super-layer (``MOE_LAYERS`` = 2: 16
      experts top-1 and a shared expert, 40 query heads over 8, window
-     8,192, vocab 202,048): the same prefill and serve; each serve at
-     batch 8, 128 tokens, pages of 4 (granite-8b's), each prefill also
-     under the profiler, each serve with its breakdown over 8 + 8 tokens;
+     8,192, vocab 202,048): the same prefill and serve;
+     deepseek-v2-236b (MLA) at its published widths cut to its dense
+     layer 0 + one MoE layer (``MLA_LAYERS`` = 2: 160 experts top-6 and 2
+     shared, 128 heads, q/k 128 + 64, v 128, kv_lora 512): the same
+     prefill and serve; whisper-small (enc-dec, 12 + 12 layers, d_model
+     768) through ``launch.train.train`` for 6 AdamW steps at batch 2 x
+     448 tokens beside 1,500 zero stub frames (both flash kernels), then
+     the prefill over frames drawn with numpy from the seed and the serve;
+     each serve at batch 8, 128 tokens, pages of 4 (granite-8b's), each
+     prefill also under the profiler, each serve with its breakdown over
+     8 + 8 tokens;
      the card's SM clock (``nvidia-smi``) is printed just before and just
      after each train and prefill phase;
   4. whole-path checks: the scan-engine entry points on the card and on
@@ -195,13 +209,17 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      tokens exact; attention mass, fast-mass share and pools within 1e-5);
      three train steps of reduced stablelm-1.6b, granite-8b,
      mamba2-370m, zamba2-1.2b, llava-next-mistral-7b (its zero patch
-     stub) and llama4-scout (f32, batch 2, seq 40) on the card and on the
-     CPU from the same weights (loss and grad norm within 1e-5 relative,
-     params within 1e-5 of their largest entry, plus 1e-2 of the summed
-     lr for the two with a scan), a restart from a checkpoint on the card
-     against the uninterrupted run, and 16 decode steps of reduced
-     mamba2-370m and of reduced zamba2-1.2b on the card and on the CPU
-     (tokens exact);
+     stub), llama4-scout, deepseek-v2-236b and whisper-small (its zero
+     frame stub) (f32, batch 2, seq 40) on the card and on the CPU from
+     the same weights (loss and grad norm within 1e-5 relative, params
+     within 1e-5 of their largest entry, plus 1e-2 of the summed lr for
+     mamba2-370m and 5e-2 for zamba2-1.2b and deepseek-v2-236b:
+     ``TRAIN_CHECKS``), a restart from a checkpoint on the card
+     against the uninterrupted run, 16 decode steps of reduced
+     mamba2-370m, zamba2-1.2b, deepseek-v2-236b and whisper-small on the
+     card and on the CPU (tokens exact), and gradient compression (bf16,
+     and int8 with error feedback over 3 steps) of one train step's
+     gradients of reduced deepseek-v2-236b bit for bit card == CPU;
   5. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -251,6 +269,8 @@ from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import mamba2 as Mb  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.layers import dtype_of  # noqa: E402
+from repro_torch.ft import compression  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.simulator import (engine, experiment,  # noqa: E402
                                    machine_spec, machines, scan_engine,
@@ -844,10 +864,14 @@ def fire_library(*a):
 
 
 # the serving fold's heads a sequence (query, KV) and head width: granite-8b's
-# (timed; llava-next-mistral-7b's too), zamba2-1.2b's shared block and
-# llama4-scout's (held, not timed)
+# (timed; llava-next-mistral-7b's too), zamba2-1.2b's shared block,
+# llama4-scout's, deepseek-v2-236b's (128 KV heads of 128: B x KV = 1,024)
+# and whisper-small's (12 KV heads of 64, not a power of two) (held, not
+# timed)
 SERVE_SHAPES = (("granite-8b", SH, SKV, DH), ("zamba2-1.2b", 32, 32, 64),
-                ("llama4-scout", 40, 8, 128))
+                ("llama4-scout", 40, 8, 128),
+                ("deepseek-v2-236b", 128, 128, 128),
+                ("whisper-small", 12, 12, 64))
 
 
 def serving_rows(entry, f, rng):
@@ -1012,23 +1036,29 @@ def offload_rows(entry, rng, dev):
 
 
 # flash attention rows: (label, B, S, H, KV, dh, causal, window, dtype);
-# the first is the training path's shape and goes into the JSON line
-# (label, B, S, H, KV, dh, causal, window, dtype, forward only): the first
-# is the training path's shape and goes into the JSON line; the prefill
-# rows run no backward on the main path
+# (label, B, S, H, KV, dq, dv, causal, window, dtype, forward only): the
+# first is the training path's shape and goes into the JSON line; the
+# prefill and encoder rows run no backward on the main path
 FLASH_ROWS = [
     ("train: stablelm-1.6b, zamba2-1.2b's shared block", 2, 4096, 32, 32, 64,
-     True, 0, torch.bfloat16, False),
-    ("GQA: granite-8b heads", 2, 2048, 32, 8, 128, True, 0, torch.bfloat16,
-     False),
-    ("windowed", 2, 4096, 32, 32, 64, True, 1024, torch.bfloat16, False),
-    ("f32", 1, 1024, 8, 2, 64, True, 0, torch.float32, False),
+     64, True, 0, torch.bfloat16, False),
+    ("GQA: granite-8b heads", 2, 2048, 32, 8, 128, 128, True, 0,
+     torch.bfloat16, False),
+    ("windowed", 2, 4096, 32, 32, 64, 64, True, 1024, torch.bfloat16, False),
+    ("f32", 1, 1024, 8, 2, 64, 64, True, 0, torch.float32, False),
     ("prefill: llava-next-mistral-7b, 576 patches + 4,096 tokens", 2, 4672,
-     32, 8, 128, True, 0, torch.bfloat16, True),
-    ("prefill: llama4-scout", 2, 4096, 40, 8, 128, True, 8192,
-     torch.bfloat16, True)]
+     32, 8, 128, 128, True, 0, torch.bfloat16, True),
+    ("prefill: llama4-scout", 2, 4096, 40, 8, 128, 128, True, 8192,
+     torch.bfloat16, True),
+    ("prefill: deepseek-v2-236b MLA, q/k 128 + 64, v 128", 2, 4096, 128, 128,
+     192, 128, True, 0, torch.bfloat16, False),
+    ("encoder: whisper-small, 1,500 frames", 2, 1500, 12, 12, 64, 64, False,
+     0, torch.bfloat16, True)]
 # bf16 rows: the largest error of one output row over that row's norm
 FLASH_ROW_REL = 1e-2
+# a row's plain version and its f32 check run a group of heads at a time
+# where the [B, H, S, S] f32 scores would pass this many bytes
+PLAIN_SCORE_BYTES = 8 * 2 ** 30
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -1062,6 +1092,16 @@ def plain_flash_f32(q, k, v, do, causal, window, kv_chunk: int = 8):
     return torch.cat(outs, 2), [torch.cat(g, 2) for g in grads if g]
 
 
+def head_groups(q, k, S: int):
+    """KV-head groups ``[(g0, g1)]`` that the plain version runs one at a
+    time: all heads in one group unless the f32 scores would pass
+    ``PLAIN_SCORE_BYTES``."""
+    B_, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    n = max(1, -(-B_ * H * S * S * 4 // PLAIN_SCORE_BYTES))
+    step = -(-KV // n)
+    return [(g0, min(KV, g0 + step)) for g0 in range(0, KV, step)]
+
+
 def sdpa_bwd_ms(sets, to_bhsd, lib_fwd, reps: int = 8) -> float:
     """Device time of ``scaled_dot_product_attention``'s backward alone:
     each input set's forward runs once, outside the timed region, and its
@@ -1091,27 +1131,48 @@ def sdpa_bwd_ms(sets, to_bhsd, lib_fwd, reps: int = 8) -> float:
     return float(np.median(times))
 
 
+def library_ms(label: str, time_it):
+    """``time_it()`` of a ``scaled_dot_product_attention`` timing under
+    PyTorch's fused backends only (flash, memory-efficient, cuDNN; its
+    math fallback would materialise the scores): None, said on a line of
+    its own, where none of them takes the row's shapes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return time_it()
+    except RuntimeError as e:
+        print(f"library scaled_dot_product_attention ({label}): no fused "
+              f"backend takes these shapes: {str(e).splitlines()[0]}",
+              flush=True)
+        return None
+
+
 def flash_rows(rows, rng):
     """Kernel rows of flash attention, forward and backward apart.  The
     check is against the plain version computed in f32 from the same
     inputs: bf16 out within 2e-2 and gradients within 2e-2 of each
-    tensor's largest entry, and each output row (over dh) within
+    tensor's largest entry, and each output row (over dv) within
     ``FLASH_ROW_REL`` of its own norm, so a fault confined to the long
     rows, whose outputs are small, shows; f32 within 2e-5 (out) and 1e-4
     (gradients) of the largest entry; two backward runs give the same
-    bits.  A prefill row (``fwd_only``) holds and times the forward
-    alone.  The bound
-    takes the bf16 tensor-core rate for bf16 rows and the f32 rate for
-    f32 rows.  Plain and library times: the plain version and
+    bits.  A prefill or encoder row (``fwd_only``) holds and times the
+    forward alone.  The bound takes the bf16 tensor-core rate for bf16
+    rows and the f32 rate for f32 rows: 2 (dq + dv) operations a kept
+    (query, key) pair forward, 6 dq + 4 dv backward.  Plain and library
+    times: the plain version (a group of heads at a time where its scores
+    would pass ``PLAIN_SCORE_BYTES``: deepseek-v2's row) and
     ``scaled_dot_product_attention`` on the same inputs, for the backward
     row their forward plus backward (a window no shorter than the
     sequence is SDPA's causal mask)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for label, B_, S, H, KV, dh, causal, window, dt, fwd_only in FLASH_ROWS:
+    for (label, B_, S, H, KV, dq, dv, causal, window, dt,
+         fwd_only) in FLASH_ROWS:
         f = lambda shape: torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to("cuda", dt)
-        q, k, v, do = f((B_, S, H, dh)), f((B_, S, KV, dh)), \
-            f((B_, S, KV, dh)), f((B_, S, H, dh))
+        q, k, v, do = f((B_, S, H, dq)), f((B_, S, KV, dq)), \
+            f((B_, S, KV, dv)), f((B_, S, H, dv))
         kw = dict(causal=causal, window=window)
         out, lse = fkernel.flash_attention_fwd(q, k, v, **kw)
         grads = () if fwd_only else fkernel.flash_attention_bwd(
@@ -1162,21 +1223,35 @@ def flash_rows(rows, rng):
             o = lib_fwd(*leaves_, mask)
             return torch.autograd.grad(o, leaves_, do.transpose(1, 2))
 
+        groups = head_groups(q, k, S)
+        rep = H // KV
+
+        def plain_fwd(q, k, v, do):
+            return [fref.flash_attention_ref(
+                q[:, :, g0 * rep:g1 * rep], k[:, :, g0:g1], v[:, :, g0:g1],
+                **kw) for g0, g1 in groups]
+
         def plain_fwd_bwd(q, k, v, do):
-            leaves_ = [x.detach().requires_grad_() for x in (q, k, v)]
-            o = fref.flash_attention_ref(*leaves_, **kw)
-            return torch.autograd.grad(o, leaves_, do)
+            out = []
+            for g0, g1 in groups:
+                leaves_ = [x.detach().requires_grad_() for x in (
+                    q[:, :, g0 * rep:g1 * rep], k[:, :, g0:g1],
+                    v[:, :, g0:g1])]
+                o = fref.flash_attention_ref(*leaves_, **kw)
+                out.append(torch.autograd.grad(
+                    o, leaves_, do[:, :, g0 * rep:g1 * rep]))
+            return out
 
         pairs = B_ * H * flash_pairs(S, causal, window)
         el = q.element_size()
-        qkv_bytes = (2 * q.numel() + 2 * k.numel()) * el
+        qkv_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * el
         for name, kern, plain, lib, args, bytes_, ops, err in (
                 ("flash_attention_fwd",
                  lambda q, k, v, do: fkernel.flash_attention_fwd(
                      q, k, v, **kw),
-                 lambda q, k, v, do: fref.flash_attention_ref(q, k, v, **kw),
-                 lib_fwd, (q, k, v, do),
-                 qkv_bytes + lse.numel() * 4, 4 * pairs * dh, err_out),
+                 plain_fwd, lib_fwd, (q, k, v, do),
+                 qkv_bytes + lse.numel() * 4, 2 * pairs * (dq + dv),
+                 err_out),
                 ("flash_attention_bwd",
                  lambda q, k, v, do, o, l: fkernel.flash_attention_bwd(
                      q, k, v, o, l, do, **kw),
@@ -1184,22 +1259,23 @@ def flash_rows(rows, rng):
                  lambda q4, k4, v4, mask, do, o, l: lib_fwd_bwd(
                      q4, k4, v4, mask, do),
                  (q, k, v, do, out, lse),
-                 2 * qkv_bytes + lse.numel() * 4, 10 * pairs * dh,
+                 2 * qkv_bytes + lse.numel() * 4, pairs * (6 * dq + 4 * dv),
                  err_grad))[:1 if fwd_only else 2]:
             bms, by = bound(bytes_, ops, BF16_OPS_PER_S
                             if dt == torch.bfloat16 else F32_OPS_PER_S)
             sets = copies(args, bytes_)
             ms = cuda_ms(kern, sets, reps=4)
             plain_ms = cuda_ms(plain, sets, reps=2)
-            lib_ms = cuda_ms(lib, [to_bhsd(*a) for a in sets], reps=4)
-            bwd_only = "" if name == "flash_attention_fwd" else (
-                " library_bwd_only_ms="
-                f"{sdpa_bwd_ms(sets, to_bhsd, lib_fwd):.5f}")
+            lib_ms = library_ms(label, lambda: cuda_ms(
+                lib, [to_bhsd(*a) for a in sets], reps=4))
+            bwd_only = "" if name == "flash_attention_fwd" or lib_ms is None \
+                else (" library_bwd_only_ms=" + str(library_ms(
+                    label, lambda: sdpa_bwd_ms(sets, to_bhsd, lib_fwd))))
             print(f"kernel {name} ({label}: B={B_} S={S} H={H} KV={KV} "
-                  f"dh={dh} {str(dt)[6:]} causal={causal} window={window})"
-                  f": max_abs_err={err} ms={ms:.5f} plain_ms={plain_ms:.5f}"
-                  f" library_ms={lib_ms:.5f}{bwd_only} bound_ms={bms:.5f} "
-                  f"({by})", flush=True)
+                  f"dq={dq} dv={dv} {str(dt)[6:]} causal={causal} "
+                  f"window={window}): max_abs_err={err} ms={ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} library_ms={lib_ms}{bwd_only} "
+                  f"bound_ms={bms:.5f} ({by})", flush=True)
             if name not in rows:
                 rows[name] = dict(
                     name=name, route="cuda",
@@ -1568,10 +1644,11 @@ def main_path(seed: int, held: set):
     ssm_consistency(seed)
     stamp("main path ssm prefill and decode")
     models = family_paths(seed)
+    newer = mla_encdec_paths(seed)
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
             **fams, **eng, **synth, **tuned, **board, "serve": serve_counts,
             **families, **tiers, "train": train_counts,
-            "train_ssm": ssm_counts, **paths, **models}
+            "train_ssm": ssm_counts, **paths, **models, **newer}
 
 
 # the other policy families: knob grids of 16 lanes (12 for HybridTier) on
@@ -2577,12 +2654,63 @@ def family_paths(seed: int) -> dict:
     return out
 
 
-def prefill_and_serve(tag: str, cfg, seed: int, pre_kernels) -> dict:
+# the MLA and enc-dec families at full width: deepseek-v2-236b at its
+# published widths cut to its dense layer 0 + one MoE layer
+# (5,358,679,040 params, 10.7 GB in bf16; 60 layers are 471 GB) prefills
+# and serves; whisper-small (238,139,904 params) trains, prefills and
+# serves at its depth, its decoder over WHISPER_SEQ tokens (its published
+# text context, arXiv:2212.04356) beside the 1,500 stub frames
+MLA_ARCH, ENCDEC_ARCH = "deepseek-v2-236b", "whisper-small"
+MLA_LAYERS = 2
+WHISPER_SEQ = 448
+
+
+def mla_encdec_paths(seed: int) -> dict:
+    """deepseek-v2-236b at layer 0 + one MoE layer: ``make_prefill_step``
+    at 2 x 4,096 (MLA's (192, 128) flash forward) and the ARMS serve;
+    whisper-small: ``launch.train.train`` for 6 AdamW steps at batch 2 x
+    WHISPER_SEQ over the launcher's zero frames (both flash kernels: the
+    encoder's non-causal rows over 1,500 frames, the decoder's causal
+    ones), then ``make_prefill_step`` over frames drawn with numpy from
+    the seed and the ARMS serve.  Each serve as granite-8b's.  -> {path:
+    launch counts}."""
+    out = {}
+    mla = dataclasses.replace(registry.get_arch(MLA_ARCH),
+                              n_layers=MLA_LAYERS)
+    torch.cuda.empty_cache()
+    out.update(prefill_and_serve("mla", mla, seed, ("flash_attention_fwd",)))
+    stamp("main path mla prefill and serve")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, counts = clocked("train_encdec", lambda: train.train(
+        ENCDEC_ARCH, TRAIN_STEPS, TRAIN_BATCH, WHISPER_SEQ, full=True,
+        seed=seed, log_every=1), TRAIN_KERNELS)
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"train_encdec: losses {losses} not finite")
+    tokens = TRAIN_STEPS * TRAIN_BATCH * WHISPER_SEQ
+    print(f"main path train {ENCDEC_ARCH} full: steps={TRAIN_STEPS} "
+          f"batch={TRAIN_BATCH} seq={WHISPER_SEQ} frames="
+          f"{registry.get_arch(ENCDEC_ARCH).enc_seq} wall_s={wall:.3f} "
+          f"tok_s_overall={tokens / wall:.1f} loss_first={losses[0]:.4f} "
+          f"loss_last={losses[-1]:.4f} peak_device_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"launches={counts}", flush=True)
+    out["train_encdec"] = counts
+    torch.cuda.empty_cache()
+    out.update(prefill_and_serve("encdec", registry.get_arch(ENCDEC_ARCH),
+                                 seed, ("flash_attention_fwd",),
+                                 seq=WHISPER_SEQ))
+    stamp("main path encdec train, prefill and serve")
+    return out
+
+
+def prefill_and_serve(tag: str, cfg, seed: int, pre_kernels,
+                      seq: int = TRAIN_SEQ) -> dict:
     """``cfg`` at full width, random weights from the seed: one
-    ``make_prefill_step`` at batch 2 x 4,096 tokens (a vlm's patches
-    before them) and a profiled second one (busy share), then the ARMS
-    serve with those weights and its breakdown.  -> {path: launch
-    counts}."""
+    ``make_prefill_step`` at batch 2 x ``seq`` tokens (a vlm's patches
+    before them, an enc-dec model's frames beside them, numpy from the
+    seed) and a profiled second one (busy share), then the ARMS serve
+    with those weights and its breakdown.  -> {path: launch counts}."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -2592,15 +2720,20 @@ def prefill_and_serve(tag: str, cfg, seed: int, pre_kernels) -> dict:
     print(f"main path {tag}: {cfg.name} weights ({cfg.n_layers} layers, "
           f"{cfg.n_params:,} params) made in {time.time() - t0:.3f}s",
           flush=True)
-    batch = train.to_device(SyntheticLM(cfg.vocab_size_raw, TRAIN_SEQ,
+    batch = train.to_device(SyntheticLM(cfg.vocab_size_raw, seq,
                                         TRAIN_BATCH, seed=seed).batch_at(0),
                             dev)
-    S_all = TRAIN_SEQ
+    S_all, what = seq, ""
+    draw = lambda n: torch.from_numpy(np.random.default_rng(
+        seed).standard_normal((TRAIN_BATCH, n, cfg.d_model),
+                              dtype=np.float32)).to(dev)
     if cfg.family == "vlm":
-        batch["patch_embeds"] = torch.from_numpy(np.random.default_rng(
-            seed).standard_normal((TRAIN_BATCH, cfg.n_patches, cfg.d_model),
-                                  dtype=np.float32)).to(dev)
+        batch["patch_embeds"] = draw(cfg.n_patches)
         S_all += cfg.n_patches
+        what = f" ({cfg.n_patches} patches)"
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = draw(cfg.enc_seq).to(dtype_of(cfg))
+        what = f" (beside {cfg.enc_seq} frames)"
     prefill = steps.make_prefill_step(cfg)
     logits, wall, pre_counts = clocked(
         f"prefill_{tag}", lambda: prefill(params, batch), pre_kernels)
@@ -2608,7 +2741,7 @@ def prefill_and_serve(tag: str, cfg, seed: int, pre_kernels) -> dict:
             and bool(torch.isfinite(logits).all()),
             f"prefill_{tag}: logits not finite or of another shape")
     print(f"main path prefill {cfg.name} full: batch={TRAIN_BATCH} "
-          f"seq={S_all} ({S_all - TRAIN_SEQ} patches) wall_s={wall:.4f} "
+          f"seq={S_all}{what} wall_s={wall:.4f} "
           f"tok_s={TRAIN_BATCH * S_all / wall:.1f} peak_device_memory_gib="
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
           f"launches={pre_counts}", flush=True)
@@ -3221,10 +3354,26 @@ def engine_check(seed: int, n: int = 4096, T_: int = 96, k: int = 512):
           f"{' '.join(moved)}", flush=True)
 
 
+# (arch, lr_slack) of ``train_check``.  deepseek-v2-236b's 5e-2: on an
+# NVIDIA H100 80GB HBM3 (700 W), seed 0, one ``moe_layers/attn/wo``
+# element whose first gradient is 5.1e-6 of its leaf's largest ends
+# 7.79e-3 lr off (1.40e-5 of the leaf's largest); on the CPU at this
+# config JAX's f32 and the port's differ by up to 3.97e-2 lr at such
+# elements (seed 1, a ``moe_layers/moe/wi`` element at 1.7e-5 of its
+# leaf's largest gradient): AdamW's normalised step turning f32 noise
+# into a share of lr, as zamba2-1.2b's
+TRAIN_CHECKS = (("stablelm-1.6b", 0.0), ("granite-8b", 0.0), (SSM_ARCH, 1e-2),
+                (HYBRID_ARCH, 5e-2), (VLM_ARCH, 0.0), (MOE_ARCH, 0.0),
+                (MLA_ARCH, 5e-2), (ENCDEC_ARCH, 0.0))
+DECODE_CHECKS = (SSM_ARCH, HYBRID_ARCH, MLA_ARCH, ENCDEC_ARCH)
+
+
 def train_check(seed: int, steps_: int = 3, seq: int = 40):
     """Train steps on the card and on the CPU: reduced stablelm-1.6b,
     granite-8b, mamba2-370m, zamba2-1.2b, llava-next-mistral-7b (with the
-    launcher's zero patch stub) and llama4-scout in f32 (TF32 off),
+    launcher's zero patch stub), llama4-scout, deepseek-v2-236b (MLA: the
+    (32, 16) flash kernels) and whisper-small (the launcher's zero frame
+    stub) in f32 (TF32 off),
     weights made from the seed on the CPU, the same batches, each run
     free from step 0.  Loss
     and grad norm within 1e-5 relative at every step; params within 1e-5
@@ -3233,7 +3382,8 @@ def train_check(seed: int, steps_: int = 3, seq: int = 40):
     where AdamW's first normalised step g / (|g| + eps) turns f32
     summation noise into up to lr (those within 2 x the summed lr).
     ``lr_slack`` is 0 for the stacks without a scan, 1e-2 for
-    mamba2-370m and 5e-2 for zamba2-1.2b: AdamW
+    mamba2-370m and 5e-2 for zamba2-1.2b (and for deepseek-v2-236b, whose
+    MoE layers have such elements too: ``TRAIN_CHECKS``): AdamW
     divides each element's gradient by its own running RMS, so an element
     whose gradient is small against its leaf's largest turns the scan's
     f32 noise (about 1e-8 absolutely) into a step error of that noise
@@ -3253,9 +3403,7 @@ def train_check(seed: int, steps_: int = 3, seq: int = 40):
     import tempfile
     torch.backends.cuda.matmul.allow_tf32 = False
     misses = []
-    for arch, lr_slack in (("stablelm-1.6b", 0.0), ("granite-8b", 0.0),
-                           (SSM_ARCH, 1e-2), (HYBRID_ARCH, 5e-2),
-                           (VLM_ARCH, 0.0), (MOE_ARCH, 0.0)):
+    for arch, lr_slack in TRAIN_CHECKS:
         cfg = registry.reduced(registry.get_arch(arch))
         opt = adamw.AdamWConfig(total_steps=steps_, warmup_steps=1)
         params0 = M.init_params(cfg, torch.Generator().manual_seed(seed),
@@ -3330,12 +3478,12 @@ def train_check(seed: int, steps_: int = 3, seq: int = 40):
           flush=True)
 
 
-def ssm_decode_check(seed: int, T_: int = 16, batch: int = 2):
-    """16 greedy decode steps of reduced mamba2-370m and of reduced
-    zamba2-1.2b (f32) on the card and on the CPU from the same weights and
-    the zero caches: tokens exact at every step, logits within 1e-5 of
-    their largest entry."""
-    for arch in (SSM_ARCH, HYBRID_ARCH):
+def decode_checks(seed: int, T_: int = 16, batch: int = 2):
+    """16 greedy decode steps of reduced mamba2-370m, zamba2-1.2b,
+    deepseek-v2-236b and whisper-small (f32) on the card and on the CPU
+    from the same weights and the zero caches: tokens exact at every step,
+    logits within 1e-5 of their largest entry."""
+    for arch in DECODE_CHECKS:
         decode_check(arch, seed, T_, batch)
 
 
@@ -3363,10 +3511,44 @@ def decode_check(arch: str, seed: int, T_: int, batch: int):
         e = float((la - lb).abs().max()) / float(lb.abs().max())
         require(e <= 1e-5, f"decode check {arch} t={t}: logits error {e}")
         worst = max(worst, e)
-    print(f"ssm decode check (reduced {arch}, f32): card == cpu over "
+    print(f"decode check (reduced {arch}, f32): card == cpu over "
           f"{T_} tokens at batch {batch}: tokens exact "
           f"{torch.cat([r[0] for r in runs['cuda']], 1)[0].tolist()}, "
           f"logits within {worst:.3e} of the largest", flush=True)
+
+
+def compression_check(seed: int, steps_: int = 3):
+    """``ft/compression.py`` on one train step's gradients of reduced
+    deepseek-v2-236b (f32, made on the CPU from the seed and copied to
+    the card): the bf16 round trip, and ``steps_`` int8 steps with the
+    error feedback carried (the gradients scaled by 1, 2, 3), bit for bit
+    the same on the card and on the CPU: q, the scales, the feedback and
+    the decompressed gradients."""
+    cfg = registry.reduced(registry.get_arch(MLA_ARCH))
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    data = SyntheticLM(cfg.vocab_size_raw, 40, 2, seed=seed)
+    _, grads = steps.make_loss_and_grads(cfg, remat=False)(
+        params, train.to_device(data.batch_at(0), torch.device("cpu")))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        g = map_leaves(lambda t: t.to(dev, copy=True), grads)
+        out = [compression.decompress_bf16(compression.compress_bf16(g))]
+        ef = compression.init_error_feedback(g)
+        for i in range(steps_):
+            q, s, ef = compression.compress_int8(
+                map_leaves(lambda t: t * (1.0 + i), g), ef)
+            out += [q, s, ef, compression.decompress_int8(q, s)]
+        runs[dev] = [t.cpu() for t in leaves(out)]
+    same = [torch.equal(a, b) and a.dtype == b.dtype
+            for a, b in zip(runs["cuda"], runs["cpu"])]
+    require(len(same) == len(runs["cpu"]) and all(same),
+            f"compression check: {same.count(False)} of {len(same)} "
+            f"leaves differ card vs cpu")
+    n = sum(t.numel() for t in leaves(grads))
+    print(f"compression check (reduced {MLA_ARCH} gradients, "
+          f"{len(leaves(grads))} leaves, {n:,} elements): bf16 round trip "
+          f"and {steps_} int8 steps with error feedback bit for bit card == "
+          f"cpu ({len(same)} tensors)", flush=True)
 
 
 def main():
@@ -3395,7 +3577,7 @@ def main():
         row["launches_by_path"] = {p: c[nm] for p, c in by_path.items()}
     for check in (whole_path_check, policy_check, engine_check, synth_check,
                   search_check, board_check, serve_check, train_check,
-                  ssm_decode_check):
+                  decode_checks, compression_check):
         t1 = time.time()
         check(args.seed)
         print(f"{check.__name__}: {time.time() - t1:.1f}s", flush=True)

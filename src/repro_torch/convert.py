@@ -169,6 +169,36 @@ def model_params(params_np, cfg, device=None):
     return leaf(params_np)
 
 
+def decode_cache(cache_np, device=None):
+    """A JAX model's decode cache (``init_cache``'s tree, numpy leaves) as
+    the port's: every family's layout is the JAX package's, so each
+    ``KVCache`` (``k``, ``v``), ``MLACache`` (``c_kv``, ``k_rope``) and
+    ``MambaCache`` (``conv``, ``ssm``) is rebuilt by field name, and dicts
+    (the MoE, MLA, enc-dec and hybrid caches) keep their keys.  Leaves
+    keep their dtype."""
+    from repro_torch.models.attention import KVCache, MLACache
+    from repro_torch.models.mamba2 import MambaCache
+    device = resolve_device(device)
+
+    def leaf(x):
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":
+            return torch.from_numpy(x.astype(np.float32)).to(
+                device, torch.bfloat16)
+        return torch.from_numpy(np.array(x)).to(device)
+
+    def build(c):
+        if isinstance(c, dict):
+            return {k: build(v) for k, v in c.items()}
+        for cls in (KVCache, MLACache, MambaCache):
+            names = [f.name for f in dataclasses.fields(cls)]
+            if all(hasattr(c, nm) for nm in names):
+                return cls(**{nm: leaf(getattr(c, nm)) for nm in names})
+        raise TypeError(f"decode_cache: unknown cache node {type(c)}")
+
+    return build(cache_np)
+
+
 def adamw_state(state_np, params, device=None):
     """A JAX ``AdamWState`` (``step``, and ``m``/``v``/``master`` trees
     shaped like the params; ``master`` ``{}`` without a master copy) as

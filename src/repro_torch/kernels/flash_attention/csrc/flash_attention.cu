@@ -2,20 +2,24 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention_kernel): q [B, S, H, dh], k/v [B, S, KV, dh] with
-// H = KV * rep, query head h reading KV head h / rep; scores scaled by
-// dh^-0.5, masked (kj <= qi when causal, kj > qi - window when window > 0)
-// at -1e30, an online softmax in f32, and the output acc / max(l, 1e-30) in
-// q's dtype (f32 or bf16).  Unlike the TPU kernel it takes any S >= 1 (a
+// (flash_attention_kernel): q [B, S, H, DQ], k [B, S, KV, DQ], v [B, S, KV,
+// DV] with H = KV * rep, query head h reading KV head h / rep; scores scaled
+// by DQ^-0.5, masked (kj <= qi when causal, kj > qi - window when window >
+// 0) at -1e30, an online softmax in f32, and the output [B, S, H, DV]
+// acc / max(l, 1e-30) in q's dtype (f32 or bf16).  The widths come in the
+// pairs (DQ, DV) = (16, 16), (64, 64), (128, 128), (32, 16) and (192, 128):
+// the last two are MLA's (q and k of width nope + rope, v of width v_head,
+// reduced and at deepseek-v2's published widths), where the TPU kernel
+// takes v as wide as q.  Unlike the TPU kernel it takes any S >= 1 (a
 // ragged last tile is masked) and also computes the gradient, which the JAX
 // package only gets by differentiating its XLA path.  Build:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 //
-// Bound: operations.  At the training shape (S = 4,096, dh = 64) a causal
-// forward does about S / 2 multiply-adds per element it reads, far above
-// the card's 295 flops a byte.  Two routes, by dtype:
+// Bound: operations.  At the training shape (S = 4,096, DQ = DV = 64) a
+// causal forward does about S / 2 multiply-adds per element it reads, far
+// above the card's 295 flops a byte.  Two routes, by dtype:
 //
 //   * bf16 (the training path): every product on the tensor cores, as
 //     wgmma with bf16 operands and f32 accumulators, tiles brought in by
@@ -31,14 +35,16 @@
 //     f32 before both products.  The card-vs-CPU train checks and the f32
 //     card tests hold this route to 1e-5 against the CPU's f32 products,
 //     which a bf16 pass could not meet, so it keeps the CUDA cores.  Every
-//     tile is 64 x 64; a block of 256 threads is a 16 x 16 grid, thread
+//     tile is 64 rows; a block of 256 threads is a 16 x 16 grid, thread
 //     (ty, tx) owning rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
-//     score tile.  Shared-memory rows are dh + 1 floats long (odd), so the
-//     16 column threads of a half-warp read 16 distinct banks.  The
+//     score tile.  Shared-memory rows are width + 1 floats long (odd), so
+//     the 16 column threads of a half-warp read 16 distinct banks.  The
 //     multiply-adds are explicit fmaf (the library builds with
-//     -fmad=false).
+//     -fmad=false).  At (192, 128) a block's tiles take 145-194 KiB of
+//     shared memory (one block an SM).
 //
-// Both routes run the same four steps:
+// Both routes run the same four steps, with S = Q K^T over DQ and P V, dV,
+// dP = dO V^T and Delta over DV; dK and dQ are DQ wide:
 //
 //   1. forward: one block per (query tile, sequence x query head), the
 //      longest causal rows scheduled first.  It walks the key tiles that
@@ -150,23 +156,23 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
 // ========================================== f32: CUDA cores, exact products
 
 // ------------------------------------------------------------------ forward
-template <int DH>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(FA_THREADS)
     fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, int S, int H, int KV, int causal,
            int window, float scale) {
-  constexpr int LD = DH + 1, NC = DH / 16;
+  constexpr int LQ = DQ + 1, LV = DV + 1, NC = DV / 16;
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* Ks = Qs + FA_TILE * LD;
-  float* Vs = Ks + FA_TILE * LD;
-  float* Ps = Vs + FA_TILE * LD;   // [64][65] probabilities
+  float* Ks = Qs + FA_TILE * LQ;
+  float* Vs = Ks + FA_TILE * LQ;
+  float* Ps = Vs + FA_TILE * LV;   // [64][65] probabilities
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
   const int b = blockIdx.y / H, h = blockIdx.y % H, g = h / (H / KV);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<DH>(Qs, q, b, q0, h, S, H);
+  load_tile<DQ>(Qs, q, b, q0, h, S, H);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -180,11 +186,11 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * FA_TILE;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<DH>(Ks, k, b, k0, g, S, KV);
-    load_tile<DH>(Vs, v, b, k0, g, S, KV);
+    load_tile<DQ>(Ks, k, b, k0, g, S, KV);
+    load_tile<DV>(Vs, v, b, k0, g, S, KV);
     __syncthreads();
     float s[4][4];
-    tile_dot<DH>(Qs, Ks, ty, tx, s);
+    tile_dot<DQ>(Qs, Ks, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty + 16 * i;
@@ -219,7 +225,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * FA_PLD + kk];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = Vs[kk * LD + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) vv[c] = Vs[kk * LV + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -231,7 +237,7 @@ __global__ void __launch_bounds__(FA_THREADS)
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float L = fmaxf(l[i], 1e-30f);
-    float* row = o + (((int64_t)b * S + qi) * H + h) * DH;
+    float* row = o + (((int64_t)b * S + qi) * H + h) * DV;
 #pragma unroll
     for (int c = 0; c < NC; ++c) row[tx + 16 * c] = acc[i][c] / L;
     if (tx == 0) lse[((int64_t)b * H + h) * S + qi] = m[i] + logf(l[i]);
@@ -239,7 +245,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 }
 
 // ----------------------------------------------------------------- backward
-template <typename T, int DH>
+template <typename T, int DV>
 __global__ void fa_delta(const T* __restrict__ o, const T* __restrict__ dout,
                          float* __restrict__ delta, int S, int H,
                          int64_t rows) {
@@ -248,8 +254,8 @@ __global__ void fa_delta(const T* __restrict__ o, const T* __restrict__ dout,
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   float acc = 0.0f;
-  for (int d = lane; d < DH; d += 32)
-    acc = fmaf(to_f(dout[row * DH + d]), to_f(o[row * DH + d]), acc);
+  for (int d = lane; d < DV; d += 32)
+    acc = fmaf(to_f(dout[row * DV + d]), to_f(o[row * DV + d]), acc);
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -284,7 +290,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     dst[t] = s0 + t < S ? src[base + s0 + t] : 0.0f;
 }
 
-template <int DH>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(FA_THREADS)
     fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -292,13 +298,13 @@ __global__ void __launch_bounds__(FA_THREADS)
                 const float* __restrict__ delta, float* __restrict__ dk,
                 float* __restrict__ dv, int S, int H, int KV, int causal,
                 int window, float scale) {
-  constexpr int LD = DH + 1, NC = DH / 16;
+  constexpr int LQ = DQ + 1, LV = DV + 1, NQ = DQ / 16, NV = DV / 16;
   extern __shared__ float sm[];
   float* Ks = sm;
-  float* Vs = Ks + FA_TILE * LD;
-  float* Qs = Vs + FA_TILE * LD;
-  float* dOs = Qs + FA_TILE * LD;
-  float* Ps = dOs + FA_TILE * LD;   // [64 queries][65]
+  float* Vs = Ks + FA_TILE * LQ;
+  float* Qs = Vs + FA_TILE * LV;
+  float* dOs = Qs + FA_TILE * LQ;
+  float* Ps = dOs + FA_TILE * LV;   // [64 queries][65]
   float* dSs = Ps + FA_TILE * FA_PLD;
   float* lse_s = dSs + FA_TILE * FA_PLD;
   float* dl_s = lse_s + FA_TILE;
@@ -306,13 +312,16 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int b = blockIdx.y / KV, g = blockIdx.y % KV, rep = H / KV;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<DH>(Ks, k, b, k0, g, S, KV);
-  load_tile<DH>(Vs, v, b, k0, g, S, KV);
-  float dk_acc[4][NC], dv_acc[4][NC];   // keys ty + 16 i, dims tx + 16 c
+  load_tile<DQ>(Ks, k, b, k0, g, S, KV);
+  load_tile<DV>(Vs, v, b, k0, g, S, KV);
+  float dk_acc[4][NQ], dv_acc[4][NV];   // keys ty + 16 i, dims tx + 16 c
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+    for (int c = 0; c < NQ; ++c) dk_acc[i][c] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) dv_acc[i][c] = 0.0f;
+  }
   int lo, hi;
   query_tiles(k0, S, causal, window, lo, hi);
   for (int r = 0; r < rep; ++r) {
@@ -321,14 +330,14 @@ __global__ void __launch_bounds__(FA_THREADS)
     for (int qt = lo; qt <= hi; ++qt) {
       const int q0 = qt * FA_TILE;
       __syncthreads();
-      load_tile<DH>(Qs, q, b, q0, h, S, H);
-      load_tile<DH>(dOs, dout, b, q0, h, S, H);
+      load_tile<DQ>(Qs, q, b, q0, h, S, H);
+      load_tile<DV>(dOs, dout, b, q0, h, S, H);
       load_rows(lse_s, lse, row_base, q0, S);
       load_rows(dl_s, delta, row_base, q0, S);
       __syncthreads();
       float s[4][4], dp[4][4];
-      tile_dot<DH>(Qs, Ks, ty, tx, s);
-      tile_dot<DH>(dOs, Vs, ty, tx, dp);
+      tile_dot<DQ>(Qs, Ks, ty, tx, s);
+      tile_dot<DV>(dOs, Vs, ty, tx, dp);
       probs_and_dscores(s, dp, lse_s, dl_s, q0, k0, ty, tx, S, causal,
                         window, scale);
 #pragma unroll
@@ -340,24 +349,25 @@ __global__ void __launch_bounds__(FA_THREADS)
         }
       __syncthreads();
       for (int qq = 0; qq < FA_TILE; ++qq) {
-        float p[4], ds[4], dov[NC], qv[NC];
+        float p[4], ds[4], dov[NV], qv[NQ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           p[i] = Ps[qq * FA_PLD + ty + 16 * i];
           ds[i] = dSs[qq * FA_PLD + ty + 16 * i];
         }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dov[c] = dOs[qq * LD + tx + 16 * c];
-          qv[c] = Qs[qq * LD + tx + 16 * c];
-        }
+        for (int c = 0; c < NV; ++c) dov[c] = dOs[qq * LV + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int c = 0; c < NQ; ++c) qv[c] = Qs[qq * LQ + tx + 16 * c];
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c = 0; c < NV; ++c)
             dv_acc[i][c] = fmaf(p[i], dov[c], dv_acc[i][c]);
+#pragma unroll
+          for (int c = 0; c < NQ; ++c)
             dk_acc[i][c] = fmaf(ds[i], qv[c], dk_acc[i][c]);
-          }
+        }
       }
     }
   }
@@ -365,29 +375,29 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= S) continue;
-    const int64_t at = (((int64_t)b * S + kj) * KV + g) * DH;
+    const int64_t at = ((int64_t)b * S + kj) * KV + g;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[at + tx + 16 * c] = dk_acc[i][c] * scale;
-      dv[at + tx + 16 * c] = dv_acc[i][c];
-    }
+    for (int c = 0; c < NQ; ++c)
+      dk[at * DQ + tx + 16 * c] = dk_acc[i][c] * scale;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) dv[at * DV + tx + 16 * c] = dv_acc[i][c];
   }
 }
 
-template <int DH>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(FA_THREADS)
     fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int S, int H, int KV, int causal,
               int window, float scale) {
-  constexpr int LD = DH + 1, NC = DH / 16;
+  constexpr int LQ = DQ + 1, LV = DV + 1, NC = DQ / 16;
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* dOs = Qs + FA_TILE * LD;
-  float* Ks = dOs + FA_TILE * LD;
-  float* Vs = Ks + FA_TILE * LD;
-  float* dSs = Vs + FA_TILE * LD;   // [64 queries][65]
+  float* dOs = Qs + FA_TILE * LQ;
+  float* Ks = dOs + FA_TILE * LV;
+  float* Vs = Ks + FA_TILE * LQ;
+  float* dSs = Vs + FA_TILE * LV;   // [64 queries][65]
   float* lse_s = dSs + FA_TILE * FA_PLD;
   float* dl_s = lse_s + FA_TILE;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
@@ -395,8 +405,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t row_base = ((int64_t)b * H + h) * S;
 
-  load_tile<DH>(Qs, q, b, q0, h, S, H);
-  load_tile<DH>(dOs, dout, b, q0, h, S, H);
+  load_tile<DQ>(Qs, q, b, q0, h, S, H);
+  load_tile<DV>(dOs, dout, b, q0, h, S, H);
   load_rows(lse_s, lse, row_base, q0, S);
   load_rows(dl_s, delta, row_base, q0, S);
   float dq_acc[4][NC];   // queries ty + 16 i, dims tx + 16 c
@@ -409,12 +419,12 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * FA_TILE;
     __syncthreads();
-    load_tile<DH>(Ks, k, b, k0, g, S, KV);
-    load_tile<DH>(Vs, v, b, k0, g, S, KV);
+    load_tile<DQ>(Ks, k, b, k0, g, S, KV);
+    load_tile<DV>(Vs, v, b, k0, g, S, KV);
     __syncthreads();
     float s[4][4], dp[4][4];
-    tile_dot<DH>(Qs, Ks, ty, tx, s);
-    tile_dot<DH>(dOs, Vs, ty, tx, dp);
+    tile_dot<DQ>(Qs, Ks, ty, tx, s);
+    tile_dot<DV>(dOs, Vs, ty, tx, dp);
     probs_and_dscores(s, dp, lse_s, dl_s, q0, k0, ty, tx, S, causal, window,
                       scale);
 #pragma unroll
@@ -428,7 +438,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * FA_PLD + kk];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * LD + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * LQ + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -440,7 +450,7 @@ __global__ void __launch_bounds__(FA_THREADS)
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
-    float* row = dq + (((int64_t)b * S + qi) * H + h) * DH;
+    float* row = dq + (((int64_t)b * S + qi) * H + h) * DQ;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       row[tx + 16 * c] = dq_acc[i][c] * scale;
@@ -452,16 +462,21 @@ __global__ void __launch_bounds__(FA_THREADS)
 // Shapes: a block is one warpgroup (128 threads); its products are
 // wgmma.m64nNk16 with f32 accumulators, 64 rows a product (BM = 64 query
 // or key rows), key and query tiles of BN = 64.  Every tile of q, k, v or
-// dO is 64 rows x dh bf16, brought into shared memory by TMA from a 4-d
-// tensor map over [B, S, heads, dh] (a ragged last tile is zero-filled by
-// the hardware) in the swizzled layout wgmma reads: 128-byte swizzle in
-// regions of 64 columns (dh 64: one region, dh 128: two), 32-byte swizzle
-// for dh = 16.  The same tile is a K-major operand (rows x dh, for S = Q K^T
-// and dP = dO V^T) or, read through an MN-major descriptor (trans-b), the
-// B operand [rows, dh] of P V, P^T dO, dS^T Q and dS K.  P and dS never
-// leave registers: a 64 x 64 f32 accumulator of wgmma is, pair by pair, the
-// A fragment of the next wgmma, so each is rounded to bf16 in registers and
-// fed as the register A operand.
+// dO is 64 rows x its width (DQ for q and k, DV for v and dO) of bf16,
+// brought into shared memory by TMA from a 4-d tensor map over [B, S,
+// heads, width] (a ragged last tile is zero-filled by the hardware) in the
+// swizzled layout wgmma reads: 128-byte swizzle in regions of 64 columns
+// where the width is a multiple of 64 (64: one region, 128: two, 192:
+// three), else 32-byte swizzle in regions of 16 columns (16: one, 32: two).
+// The q and k maps share a width, the v and dO maps another; each tensor
+// has its own map.  The same tile is a K-major operand (rows x width, for
+// S = Q K^T and dP = dO V^T) or, read through an MN-major descriptor
+// (trans-b), the B operand [rows, width] of P V, P^T dO, dS^T Q and dS K.
+// P and dS never leave registers: a 64 x 64 f32 accumulator of wgmma is,
+// pair by pair, the A fragment of the next wgmma, so each is rounded to
+// bf16 in registers and fed as the register A operand.  At (192, 128) the
+// dK/dV block holds dK (96 floats a thread) and dV (64) in registers beside
+// the P^T and dP^T tiles; -Xptxas -v reports what spills.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -617,7 +632,7 @@ constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int DH>
 struct Tile {
-  static constexpr int SW = DH == 16 ? 32 : 128;  // bytes of a region row
+  static constexpr int SW = DH % 64 ? 32 : 128;   // bytes of a region row
   static constexpr int COLS = SW / 2;              // bf16 columns a region
   static constexpr int NREG = DH / COLS;           // regions a tile
   static constexpr int RB = BM * SW;               // bytes a region
@@ -690,19 +705,21 @@ __device__ __forceinline__ float quad_sum(float v) {
 // starts tile t + 1's TMA into the other stage (freed by the block barrier
 // at the top of each step) before the block waits on tile t's mbarrier.
 // S = Q K^T, the masked online softmax in f32 in the log2 domain (scores
-// times dh^-0.5 log2 e), P rounded to bf16 in registers, O += P V.
-template <int DH>
+// times DQ^-0.5 log2 e), P rounded to bf16 in registers, O += P V.
+template <int DQ, int DV>
 __global__ void __launch_bounds__(tc::THREADS)
     fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
               int H, int KV, int causal, int window, float scale_log2) {
-  using T = tc::Tile<DH>;
+  using TQ = tc::Tile<DQ>;
+  using TV = tc::Tile<DV>;
+  constexpr uint32_t KV_BYTES = TQ::TB + TV::TB;   // one K and one V tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // K/V stages 0 and 1, Q
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base, sK = base + T::TB, sV = base + 3 * T::TB;
+  const uint32_t sQ = base, sK = base + TQ::TB, sV = base + 3 * TQ::TB;
   const uint32_t bar0 = smem_u32(&bars[0]), bar_q = smem_u32(&bars[2]);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::BM;
@@ -714,18 +731,18 @@ __global__ void __launch_bounds__(tc::THREADS)
     mbar_init(bar0 + 8, 1);
     mbar_init(bar_q, 1);
     mbar_fence_init();
-    mbar_expect_tx(bar_q, T::TB);
-    tc::load_tile<DH>(sQ, &tq, bar_q, h, q0, b);
-    mbar_expect_tx(bar0, 2 * T::TB);
-    tc::load_tile<DH>(sK, &tk, bar0, g, lo * tc::BN, b);
-    tc::load_tile<DH>(sV, &tv, bar0, g, lo * tc::BN, b);
+    mbar_expect_tx(bar_q, TQ::TB);
+    tc::load_tile<DQ>(sQ, &tq, bar_q, h, q0, b);
+    mbar_expect_tx(bar0, KV_BYTES);
+    tc::load_tile<DQ>(sK, &tk, bar0, g, lo * tc::BN, b);
+    tc::load_tile<DV>(sV, &tv, bar0, g, lo * tc::BN, b);
   }
   const int row0 = 16 * warp + (lane >> 2);   // and row0 + 8
-  float acc[T::NREG][T::NACC];
+  float acc[TV::NREG][TV::NACC];
 #pragma unroll
-  for (int r = 0; r < T::NREG; ++r)
+  for (int r = 0; r < TV::NREG; ++r)
 #pragma unroll
-    for (int j = 0; j < T::NACC; ++j) acc[r][j] = 0.0f;
+    for (int j = 0; j < TV::NACC; ++j) acc[r][j] = 0.0f;
   float m[2] = {FA_NEG, FA_NEG}, l[2] = {0.0f, 0.0f};   // l: this thread's
   __syncthreads();                                      // columns only
   mbar_wait(bar_q, 0);
@@ -734,17 +751,17 @@ __global__ void __launch_bounds__(tc::THREADS)
     __syncthreads();   // every thread is done with stage st ^ 1
     if (tid == 0 && kt < hi) {
       const uint32_t bar = bar0 + 8 * (st ^ 1);
-      mbar_expect_tx(bar, 2 * T::TB);
-      tc::load_tile<DH>(sK + (st ^ 1) * T::TB, &tk, bar, g, k0 + tc::BN, b);
-      tc::load_tile<DH>(sV + (st ^ 1) * T::TB, &tv, bar, g, k0 + tc::BN, b);
+      mbar_expect_tx(bar, KV_BYTES);
+      tc::load_tile<DQ>(sK + (st ^ 1) * TQ::TB, &tk, bar, g, k0 + tc::BN, b);
+      tc::load_tile<DV>(sV + (st ^ 1) * TV::TB, &tv, bar, g, k0 + tc::BN, b);
     }
     mbar_wait(bar0 + 8 * st, (it >> 1) & 1);
-    const uint32_t kst = sK + st * T::TB, vst = sV + st * T::TB;
+    const uint32_t kst = sK + st * TQ::TB, vst = sV + st * TV::TB;
     float s[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(s, tc::kmajor<DH>(sQ, kk), tc::kmajor<DH>(kst, kk), kk);
+    for (int kk = 0; kk < DQ / 16; ++kk)
+      wgmma_ss_n64(s, tc::kmajor<DQ>(sQ, kk), tc::kmajor<DQ>(kst, kk), kk);
     wg_commit();
     wg_wait();
     keep(s);
@@ -776,19 +793,19 @@ __global__ void __launch_bounds__(tc::THREADS)
       pa[j >> 1] = pack_bf16(p0, p1);
     }
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r)
+    for (int r = 0; r < TV::NREG; ++r)
 #pragma unroll
-      for (int j = 0; j < T::NACC; ++j) acc[r][j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < TV::NACC; ++j) acc[r][j] *= alpha[(j >> 1) & 1];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < tc::BN / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < T::NREG; ++r)
-        wgmma_rs<T::COLS>(acc[r], &pa[4 * kk], tc::mnmajor<DH>(vst, r, kk));
+      for (int r = 0; r < TV::NREG; ++r)
+        wgmma_rs<TV::COLS>(acc[r], &pa[4 * kk], tc::mnmajor<DV>(vst, r, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r) keep(acc[r]);
+    for (int r = 0; r < TV::NREG; ++r) keep(acc[r]);
     keep(pa);
   }
 #pragma unroll
@@ -797,13 +814,13 @@ __global__ void __launch_bounds__(tc::THREADS)
     const float L = tc::quad_sum(l[i]);
     if (qi >= S) continue;
     const float inv = 1.0f / fmaxf(L, 1e-30f);
-    __nv_bfloat16* row = o + (((int64_t)b * S + qi) * H + h) * DH;
+    __nv_bfloat16* row = o + (((int64_t)b * S + qi) * H + h) * DV;
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r)
+    for (int r = 0; r < TV::NREG; ++r)
 #pragma unroll
-      for (int j = 2 * i; j < T::NACC; j += 4)
+      for (int j = 2 * i; j < TV::NACC; j += 4)
         *reinterpret_cast<__nv_bfloat162*>(
-            row + r * T::COLS + tc::acc_col(j, lane)) =
+            row + r * TV::COLS + tc::acc_col(j, lane)) =
             __floats2bfloat162_rn(acc[r][j] * inv, acc[r][j + 1] * inv);
     if ((lane & 3) == 0)
       lse[((int64_t)b * H + h) * S + qi] = m[i] * tc::LN2 + logf(L);
@@ -811,21 +828,21 @@ __global__ void __launch_bounds__(tc::THREADS)
 }
 
 // ---------------------------------------------------- backward (wgmma)
-// One step's operands of a dK/dV block: the Q and dO tiles of query head h
-// at row q0 by TMA (thread 0), and the rows' lse (times log2 e) and Delta
-// into shared memory (threads below 64; rows past S read 0).
-template <int DH>
+// One step's operands of a dK/dV block: the Q (DQ wide) and dO (DV wide)
+// tiles of query head h at row q0 by TMA (thread 0), and the rows' lse
+// (times log2 e) and Delta into shared memory (threads below 64; rows past
+// S read 0).
+template <int DQ, int DV>
 __device__ __forceinline__ void dkdv_fetch(
     int h, int q0, int b, int S, int H, uint32_t q_dst, uint32_t do_dst,
     uint32_t bar, const CUtensorMap* tq, const CUtensorMap* tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* lse_row, float* dl_row) {
-  using T = tc::Tile<DH>;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    mbar_expect_tx(bar, 2 * T::TB);
-    tc::load_tile<DH>(q_dst, tq, bar, h, q0, b);
-    tc::load_tile<DH>(do_dst, tdo, bar, h, q0, b);
+    mbar_expect_tx(bar, tc::Tile<DQ>::TB + tc::Tile<DV>::TB);
+    tc::load_tile<DQ>(q_dst, tq, bar, h, q0, b);
+    tc::load_tile<DV>(do_dst, tdo, bar, h, q0, b);
   }
   if (tid < tc::BM) {
     const int64_t at = ((int64_t)b * H + h) * S + q0 + tid;
@@ -843,7 +860,7 @@ __device__ __forceinline__ void dkdv_fetch(
 // scores S^T = K Q^T (keys are the 64 rows), P^T = exp2(S^T scale log2 e -
 // lse log2 e) rounded to bf16, then dV += P^T dO together with
 // dP^T = V dO^T, then dS^T = P^T (dP^T - Delta) in bf16 and dK += dS^T Q.
-template <int DH>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(tc::THREADS)
     fa_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -854,13 +871,14 @@ __global__ void __launch_bounds__(tc::THREADS)
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
                    int causal, int window, float scale, float scale_log2) {
-  using T = tc::Tile<DH>;
+  using TQ = tc::Tile<DQ>;
+  using TV = tc::Tile<DV>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // Q/dO stages 0 and 1, K/V
   __shared__ float lse_s[2][tc::BM], dl_s[2][tc::BM];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = base, sV = base + T::TB, sQ = base + 2 * T::TB,
-                 sdO = base + 4 * T::TB;
+  const uint32_t sK = base, sV = base + TQ::TB, sQ = sV + TV::TB,
+                 sdO = sQ + 2 * TQ::TB;
   const uint32_t bar0 = smem_u32(&bars[0]), bar_kv = smem_u32(&bars[2]);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.x * tc::BN;
@@ -870,26 +888,30 @@ __global__ void __launch_bounds__(tc::THREADS)
   const int nq = hi - lo + 1, steps = rep * nq;
   // step i: query head g * rep + i / nq, query tile lo + i % nq, stage i & 1
 #define DKDV_FETCH(i)                                                        \
-  dkdv_fetch<DH>(g * rep + (i) / nq, (lo + (i) % nq) * tc::BM, b, S, H,     \
-                 sQ + ((i) & 1) * T::TB, sdO + ((i) & 1) * T::TB,          \
-                 bar0 + 8 * ((i) & 1), &tq, &tdo, lse, delta,              \
-                 lse_s[(i) & 1], dl_s[(i) & 1])
+  dkdv_fetch<DQ, DV>(g * rep + (i) / nq, (lo + (i) % nq) * tc::BM, b, S, H, \
+                     sQ + ((i) & 1) * TQ::TB, sdO + ((i) & 1) * TV::TB,    \
+                     bar0 + 8 * ((i) & 1), &tq, &tdo, lse, delta,          \
+                     lse_s[(i) & 1], dl_s[(i) & 1])
   if (tid == 0) {
     mbar_init(bar0, 1);
     mbar_init(bar0 + 8, 1);
     mbar_init(bar_kv, 1);
     mbar_fence_init();
-    mbar_expect_tx(bar_kv, 2 * T::TB);
-    tc::load_tile<DH>(sK, &tk, bar_kv, g, k0, b);
-    tc::load_tile<DH>(sV, &tv, bar_kv, g, k0, b);
+    mbar_expect_tx(bar_kv, TQ::TB + TV::TB);
+    tc::load_tile<DQ>(sK, &tk, bar_kv, g, k0, b);
+    tc::load_tile<DV>(sV, &tv, bar_kv, g, k0, b);
   }
   DKDV_FETCH(0);
   const int row0 = 16 * warp + (lane >> 2);   // keys row0 and row0 + 8
-  float dk_acc[T::NREG][T::NACC], dv_acc[T::NREG][T::NACC];
+  float dk_acc[TQ::NREG][TQ::NACC], dv_acc[TV::NREG][TV::NACC];
 #pragma unroll
-  for (int r = 0; r < T::NREG; ++r)
+  for (int r = 0; r < TQ::NREG; ++r)
 #pragma unroll
-    for (int j = 0; j < T::NACC; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.0f;
+    for (int j = 0; j < TQ::NACC; ++j) dk_acc[r][j] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < TV::NREG; ++r)
+#pragma unroll
+    for (int j = 0; j < TV::NACC; ++j) dv_acc[r][j] = 0.0f;
   __syncthreads();
   mbar_wait(bar_kv, 0);
   for (int i = 0; i < steps; ++i) {
@@ -897,12 +919,12 @@ __global__ void __launch_bounds__(tc::THREADS)
     __syncthreads();   // stage st ^ 1 is free; stage st's rows are written
     if (i + 1 < steps) DKDV_FETCH(i + 1);
     mbar_wait(bar0 + 8 * st, (i >> 1) & 1);
-    const uint32_t qst = sQ + st * T::TB, dost = sdO + st * T::TB;
+    const uint32_t qst = sQ + st * TQ::TB, dost = sdO + st * TV::TB;
     float s[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(s, tc::kmajor<DH>(sK, kk), tc::kmajor<DH>(qst, kk), kk);
+    for (int kk = 0; kk < DQ / 16; ++kk)
+      wgmma_ss_n64(s, tc::kmajor<DQ>(sK, kk), tc::kmajor<DQ>(qst, kk), kk);
     wg_commit();
     wg_wait();
     keep(s);
@@ -926,16 +948,16 @@ __global__ void __launch_bounds__(tc::THREADS)
 #pragma unroll
     for (int kk = 0; kk < tc::BM / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < T::NREG; ++r)
-        wgmma_rs<T::COLS>(dv_acc[r], &pt[4 * kk],
-                          tc::mnmajor<DH>(dost, r, kk));
+      for (int r = 0; r < TV::NREG; ++r)
+        wgmma_rs<TV::COLS>(dv_acc[r], &pt[4 * kk],
+                           tc::mnmajor<DV>(dost, r, kk));
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(dp, tc::kmajor<DH>(sV, kk), tc::kmajor<DH>(dost, kk), kk);
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss_n64(dp, tc::kmajor<DV>(sV, kk), tc::kmajor<DV>(dost, kk), kk);
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r) keep(dv_acc[r]);
+    for (int r = 0; r < TV::NREG; ++r) keep(dv_acc[r]);
     keep(dp);
     keep(pt);
     uint32_t dst[16];
@@ -952,31 +974,35 @@ __global__ void __launch_bounds__(tc::THREADS)
 #pragma unroll
     for (int kk = 0; kk < tc::BM / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < T::NREG; ++r)
-        wgmma_rs<T::COLS>(dk_acc[r], &dst[4 * kk],
-                          tc::mnmajor<DH>(qst, r, kk));
+      for (int r = 0; r < TQ::NREG; ++r)
+        wgmma_rs<TQ::COLS>(dk_acc[r], &dst[4 * kk],
+                           tc::mnmajor<DQ>(qst, r, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r) keep(dk_acc[r]);
+    for (int r = 0; r < TQ::NREG; ++r) keep(dk_acc[r]);
     keep(dst);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kj = k0 + row0 + 8 * i;
     if (kj >= S) continue;
-    const int64_t at = (((int64_t)b * S + kj) * KV + g) * DH;
+    const int64_t at = ((int64_t)b * S + kj) * KV + g;
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r)
+    for (int r = 0; r < TQ::NREG; ++r)
 #pragma unroll
-      for (int j = 2 * i; j < T::NACC; j += 4) {
-        const int c = r * T::COLS + tc::acc_col(j, lane);
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + c) =
+      for (int j = 2 * i; j < TQ::NACC; j += 4)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dk + at * DQ + r * TQ::COLS + tc::acc_col(j, lane)) =
             __floats2bfloat162_rn(dk_acc[r][j] * scale,
                                   dk_acc[r][j + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + c) =
+#pragma unroll
+    for (int r = 0; r < TV::NREG; ++r)
+#pragma unroll
+      for (int j = 2 * i; j < TV::NACC; j += 4)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dv + at * DV + r * TV::COLS + tc::acc_col(j, lane)) =
             __floats2bfloat162_rn(dv_acc[r][j], dv_acc[r][j + 1]);
-      }
   }
 }
 
@@ -986,7 +1012,7 @@ __global__ void __launch_bounds__(tc::THREADS)
 // rows first.  Q and dO arrive once, K and V tiles through a two-stage ring
 // as in the forward.  S = Q K^T and dP = dO V^T, dS = P (dP - Delta) with P
 // in f32, rounded to bf16 in registers, dQ += dS K.
-template <int DH>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(tc::THREADS)
     fa_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
@@ -996,12 +1022,14 @@ __global__ void __launch_bounds__(tc::THREADS)
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dq, int S, int H, int KV,
                  int causal, int window, float scale, float scale_log2) {
-  using T = tc::Tile<DH>;
+  using TQ = tc::Tile<DQ>;
+  using TV = tc::Tile<DV>;
+  constexpr uint32_t BYTES = TQ::TB + TV::TB;   // Q + dO, or K + V
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // K/V stages 0 and 1, Q/dO
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base, sdO = base + T::TB, sK = base + 2 * T::TB,
-                 sV = base + 4 * T::TB;
+  const uint32_t sQ = base, sdO = base + TQ::TB, sK = sdO + TV::TB,
+                 sV = sK + 2 * TQ::TB;
   const uint32_t bar0 = smem_u32(&bars[0]), bar_q = smem_u32(&bars[2]);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::BM;
@@ -1013,12 +1041,12 @@ __global__ void __launch_bounds__(tc::THREADS)
     mbar_init(bar0 + 8, 1);
     mbar_init(bar_q, 1);
     mbar_fence_init();
-    mbar_expect_tx(bar_q, 2 * T::TB);
-    tc::load_tile<DH>(sQ, &tq, bar_q, h, q0, b);
-    tc::load_tile<DH>(sdO, &tdo, bar_q, h, q0, b);
-    mbar_expect_tx(bar0, 2 * T::TB);
-    tc::load_tile<DH>(sK, &tk, bar0, g, lo * tc::BN, b);
-    tc::load_tile<DH>(sV, &tv, bar0, g, lo * tc::BN, b);
+    mbar_expect_tx(bar_q, BYTES);
+    tc::load_tile<DQ>(sQ, &tq, bar_q, h, q0, b);
+    tc::load_tile<DV>(sdO, &tdo, bar_q, h, q0, b);
+    mbar_expect_tx(bar0, BYTES);
+    tc::load_tile<DQ>(sK, &tk, bar0, g, lo * tc::BN, b);
+    tc::load_tile<DV>(sV, &tv, bar0, g, lo * tc::BN, b);
   }
   const int row0 = 16 * warp + (lane >> 2);
   float lse2[2], dl[2];
@@ -1029,11 +1057,11 @@ __global__ void __launch_bounds__(tc::THREADS)
     lse2[i] = qi < S ? lse[at] * tc::LOG2E : 0.0f;
     dl[i] = qi < S ? delta[at] : 0.0f;
   }
-  float acc[T::NREG][T::NACC];
+  float acc[TQ::NREG][TQ::NACC];
 #pragma unroll
-  for (int r = 0; r < T::NREG; ++r)
+  for (int r = 0; r < TQ::NREG; ++r)
 #pragma unroll
-    for (int j = 0; j < T::NACC; ++j) acc[r][j] = 0.0f;
+    for (int j = 0; j < TQ::NACC; ++j) acc[r][j] = 0.0f;
   __syncthreads();
   mbar_wait(bar_q, 0);
   for (int kt = lo; kt <= hi; ++kt) {
@@ -1041,20 +1069,20 @@ __global__ void __launch_bounds__(tc::THREADS)
     __syncthreads();
     if (tid == 0 && kt < hi) {
       const uint32_t bar = bar0 + 8 * (st ^ 1);
-      mbar_expect_tx(bar, 2 * T::TB);
-      tc::load_tile<DH>(sK + (st ^ 1) * T::TB, &tk, bar, g, k0 + tc::BN, b);
-      tc::load_tile<DH>(sV + (st ^ 1) * T::TB, &tv, bar, g, k0 + tc::BN, b);
+      mbar_expect_tx(bar, BYTES);
+      tc::load_tile<DQ>(sK + (st ^ 1) * TQ::TB, &tk, bar, g, k0 + tc::BN, b);
+      tc::load_tile<DV>(sV + (st ^ 1) * TV::TB, &tv, bar, g, k0 + tc::BN, b);
     }
     mbar_wait(bar0 + 8 * st, (it >> 1) & 1);
-    const uint32_t kst = sK + st * T::TB, vst = sV + st * T::TB;
+    const uint32_t kst = sK + st * TQ::TB, vst = sV + st * TV::TB;
     float s[32], dp[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(s, tc::kmajor<DH>(sQ, kk), tc::kmajor<DH>(kst, kk), kk);
+    for (int kk = 0; kk < DQ / 16; ++kk)
+      wgmma_ss_n64(s, tc::kmajor<DQ>(sQ, kk), tc::kmajor<DQ>(kst, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(dp, tc::kmajor<DH>(sdO, kk), tc::kmajor<DH>(vst, kk), kk);
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss_n64(dp, tc::kmajor<DV>(sdO, kk), tc::kmajor<DV>(vst, kk), kk);
     wg_commit();
     wg_wait();
     keep(s);
@@ -1080,25 +1108,25 @@ __global__ void __launch_bounds__(tc::THREADS)
 #pragma unroll
     for (int kk = 0; kk < tc::BN / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < T::NREG; ++r)
-        wgmma_rs<T::COLS>(acc[r], &dsf[4 * kk], tc::mnmajor<DH>(kst, r, kk));
+      for (int r = 0; r < TQ::NREG; ++r)
+        wgmma_rs<TQ::COLS>(acc[r], &dsf[4 * kk], tc::mnmajor<DQ>(kst, r, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r) keep(acc[r]);
+    for (int r = 0; r < TQ::NREG; ++r) keep(acc[r]);
     keep(dsf);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = q0 + row0 + 8 * i;
     if (qi >= S) continue;
-    __nv_bfloat16* row = dq + (((int64_t)b * S + qi) * H + h) * DH;
+    __nv_bfloat16* row = dq + (((int64_t)b * S + qi) * H + h) * DQ;
 #pragma unroll
-    for (int r = 0; r < T::NREG; ++r)
+    for (int r = 0; r < TQ::NREG; ++r)
 #pragma unroll
-      for (int j = 2 * i; j < T::NACC; j += 4)
+      for (int j = 2 * i; j < TQ::NACC; j += 4)
         *reinterpret_cast<__nv_bfloat162*>(
-            row + r * T::COLS + tc::acc_col(j, lane)) =
+            row + r * TQ::COLS + tc::acc_col(j, lane)) =
             __floats2bfloat162_rn(acc[r][j] * scale, acc[r][j + 1] * scale);
   }
 }
@@ -1111,56 +1139,61 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-static size_t tiles_smem(int dh, int n_tiles, int n_ptiles, int n_rows) {
-  return sizeof(float) * ((size_t)n_tiles * FA_TILE * (dh + 1) +
-                          (size_t)n_ptiles * FA_TILE * FA_PLD +
-                          (size_t)n_rows * FA_TILE);
+// Bytes of the f32 kernels' shared memory: n_q tiles [64][DQ + 1], n_v
+// tiles [64][DV + 1], n_p tiles [64][65] and n_rows rows of 64 floats.
+static size_t tiles_smem(int dq, int dv, int n_q, int n_v, int n_p,
+                         int n_rows) {
+  return sizeof(float) * FA_TILE *
+         ((size_t)n_q * (dq + 1) + (size_t)n_v * (dv + 1) +
+          (size_t)n_p * FA_PLD + (size_t)n_rows);
 }
 
-template <int DH>
+template <int DQ, int DV>
 static int fwd_f32(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int H, int KV, int causal,
                    int window, float scale, cudaStream_t stream) {
-  const size_t smem = tiles_smem(DH, 3, 1, 0);
-  cudaError_t err = allow_smem(fa_fwd<DH>, smem);
+  const size_t smem = tiles_smem(DQ, DV, 2, 1, 1, 0);
+  cudaError_t err = allow_smem(fa_fwd<DQ, DV>, smem);
   if (err != cudaSuccess) return (int)err;
-  fa_fwd<DH><<<dim3((S + FA_TILE - 1) / FA_TILE, B * H), FA_THREADS, smem,
-                stream>>>((const float*)q, (const float*)k, (const float*)v,
-                          (float*)o, lse, S, H, KV, causal, window, scale);
+  fa_fwd<DQ, DV><<<dim3((S + FA_TILE - 1) / FA_TILE, B * H), FA_THREADS,
+                   smem, stream>>>((const float*)q, (const float*)k,
+                                   (const float*)v, (float*)o, lse, S, H, KV,
+                                   causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DV>
 static int launch_delta(const void* o, const void* dout, float* dl, int B,
                         int S, int H, cudaStream_t stream) {
   const int64_t rows = (int64_t)B * S * H;
-  fa_delta<T, DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+  fa_delta<T, DV><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       (const T*)o, (const T*)dout, dl, S, H, rows);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DQ, int DV>
 static int bwd_f32(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* dl, void* dq,
                    void* dk, void* dv, int B, int S, int H, int KV,
                    int causal, int window, float scale,
                    cudaStream_t stream) {
   using T = float;
-  int e = launch_delta<T, DH>(o, dout, dl, B, S, H, stream);
+  int e = launch_delta<T, DV>(o, dout, dl, B, S, H, stream);
   if (e != 0) return e;
   const int n_tiles = (S + FA_TILE - 1) / FA_TILE;
-  const size_t smem_kv = tiles_smem(DH, 4, 2, 2);
-  cudaError_t err = allow_smem(fa_bwd_dkdv<DH>, smem_kv);
+  const size_t smem_kv = tiles_smem(DQ, DV, 2, 2, 2, 2);
+  cudaError_t err = allow_smem(fa_bwd_dkdv<DQ, DV>, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dkdv<DH><<<dim3(n_tiles, B * KV), FA_THREADS, smem_kv, stream>>>(
+  fa_bwd_dkdv<DQ, DV><<<dim3(n_tiles, B * KV), FA_THREADS, smem_kv,
+                        stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dl,
       (T*)dk, (T*)dv, S, H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_q = tiles_smem(DH, 4, 1, 2);
-  err = allow_smem(fa_bwd_dq<DH>, smem_q);
+  const size_t smem_q = tiles_smem(DQ, DV, 2, 2, 1, 2);
+  err = allow_smem(fa_bwd_dq<DQ, DV>, smem_q);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dq<DH><<<dim3(n_tiles, B * H), FA_THREADS, smem_q, stream>>>(
+  fa_bwd_dq<DQ, DV><<<dim3(n_tiles, B * H), FA_THREADS, smem_q, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dl,
       (T*)dq, S, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
@@ -1213,53 +1246,56 @@ static int tensor_map(CUtensorMap* map, const void* x, int B, int S, int NH) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DH>
+template <int DQ, int DV>
 static int fwd_bf16(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int S, int H, int KV, int causal,
                     int window, float scale, cudaStream_t stream) {
-  using T = tc::Tile<DH>;
   CUtensorMap mq, mk, mv;
   int e;
-  if ((e = tensor_map<DH>(&mq, q, B, S, H)) ||
-      (e = tensor_map<DH>(&mk, k, B, S, KV)) ||
-      (e = tensor_map<DH>(&mv, v, B, S, KV)))
+  if ((e = tensor_map<DQ>(&mq, q, B, S, H)) ||
+      (e = tensor_map<DQ>(&mk, k, B, S, KV)) ||
+      (e = tensor_map<DV>(&mv, v, B, S, KV)))
     return e;
-  const size_t smem = 5 * T::TB + 1024;
-  const cudaError_t err = allow_smem(fa_fwd_tc<DH>, smem);
+  // Q, two K stages, two V stages, and the 1024-byte alignment's slack
+  const size_t smem = 3 * tc::Tile<DQ>::TB + 2 * tc::Tile<DV>::TB + 1024;
+  const cudaError_t err = allow_smem(fa_fwd_tc<DQ, DV>, smem);
   if (err != cudaSuccess) return (int)err;
-  fa_fwd_tc<DH><<<dim3((S + tc::BM - 1) / tc::BM, B * H), tc::THREADS, smem,
-                  stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse, S, H, KV,
-                            causal, window, scale * tc::LOG2E);
+  fa_fwd_tc<DQ, DV><<<dim3((S + tc::BM - 1) / tc::BM, B * H), tc::THREADS,
+                      smem, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse, S,
+                                      H, KV, causal, window,
+                                      scale * tc::LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DQ, int DV>
 static int bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* dl, void* dq, void* dk, void* dv, int B, int S,
                     int H, int KV, int causal, int window, float scale,
                     cudaStream_t stream) {
-  using T = tc::Tile<DH>;
-  int e = launch_delta<__nv_bfloat16, DH>(o, dout, dl, B, S, H, stream);
+  int e = launch_delta<__nv_bfloat16, DV>(o, dout, dl, B, S, H, stream);
   if (e != 0) return e;
   CUtensorMap mq, mk, mv, mdo;
-  if ((e = tensor_map<DH>(&mq, q, B, S, H)) ||
-      (e = tensor_map<DH>(&mk, k, B, S, KV)) ||
-      (e = tensor_map<DH>(&mv, v, B, S, KV)) ||
-      (e = tensor_map<DH>(&mdo, dout, B, S, H)))
+  if ((e = tensor_map<DQ>(&mq, q, B, S, H)) ||
+      (e = tensor_map<DQ>(&mk, k, B, S, KV)) ||
+      (e = tensor_map<DV>(&mv, v, B, S, KV)) ||
+      (e = tensor_map<DV>(&mdo, dout, B, S, H)))
     return e;
   const int n_tiles = (S + tc::BM - 1) / tc::BM;
-  const size_t smem = 6 * T::TB + 1024;
-  cudaError_t err = allow_smem(fa_bwd_dkdv_tc<DH>, smem);
+  // three DQ-wide tiles (K or Q, and a two-stage ring of the other) and
+  // three DV-wide ones (V or dO, and the ring of the other), each kernel
+  const size_t smem = 3 * tc::Tile<DQ>::TB + 3 * tc::Tile<DV>::TB + 1024;
+  cudaError_t err = allow_smem(fa_bwd_dkdv_tc<DQ, DV>, smem);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dkdv_tc<DH><<<dim3(n_tiles, B * KV), tc::THREADS, smem, stream>>>(
+  fa_bwd_dkdv_tc<DQ, DV><<<dim3(n_tiles, B * KV), tc::THREADS, smem,
+                           stream>>>(
       mq, mk, mv, mdo, lse, dl, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H,
       KV, causal, window, scale, scale * tc::LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(fa_bwd_dq_tc<DH>, smem);
+  err = allow_smem(fa_bwd_dq_tc<DQ, DV>, smem);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dq_tc<DH><<<dim3(n_tiles, B * H), tc::THREADS, smem, stream>>>(
+  fa_bwd_dq_tc<DQ, DV><<<dim3(n_tiles, B * H), tc::THREADS, smem, stream>>>(
       mq, mk, mv, mdo, lse, dl, (__nv_bfloat16*)dq, S, H, KV, causal, window,
       scale, scale * tc::LOG2E);
   return (int)cudaGetLastError();
@@ -1269,48 +1305,52 @@ static bool shape_ok(int B, int S, int H, int KV) {
   return B >= 1 && S >= 1 && KV >= 1 && H % KV == 0 && (int64_t)B * H <= 65535;
 }
 
-#define FA_DISPATCH(F32, BF16)                               \
-  if (dtype == 0 && dh == 16) return F32(16);                \
-  if (dtype == 0 && dh == 64) return F32(64);                \
-  if (dtype == 0 && dh == 128) return F32(128);              \
-  if (dtype == 1 && dh == 16) return BF16(16);               \
-  if (dtype == 1 && dh == 64) return BF16(64);               \
-  if (dtype == 1 && dh == 128) return BF16(128);             \
+// The (dq, dv) pairs and dtypes instantiated; any other is refused.
+#define FA_PAIR(F32, BF16, Q, V)                  \
+  if (dq == Q && dv == V) return dtype == 0 ? F32(Q, V) : BF16(Q, V);
+#define FA_DISPATCH(F32, BF16)                    \
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue; \
+  FA_PAIR(F32, BF16, 16, 16)                      \
+  FA_PAIR(F32, BF16, 64, 64)                      \
+  FA_PAIR(F32, BF16, 128, 128)                    \
+  FA_PAIR(F32, BF16, 32, 16)                      \
+  FA_PAIR(F32, BF16, 192, 128)                    \
   return (int)cudaErrorInvalidValue;
 
-// dtype: 0 = f32, 1 = bf16; dh in {16, 64, 128}.  q/o [B, S, H, dh],
-// k/v [B, S, KV, dh], lse [B, H, S] f32, all contiguous (bf16: 16-byte
-// aligned, for TMA).
+// dtype: 0 = f32, 1 = bf16; (dq, dv) one of the pairs above.  q [B, S, H,
+// dq], k [B, S, KV, dq], v [B, S, KV, dv], o [B, S, H, dv], lse [B, H, S]
+// f32, all contiguous (bf16: 16-byte aligned, for TMA).
 extern "C" int arms_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, float* lse,
-                                        int B, int S, int H, int KV, int dh,
-                                        int causal, int window, float scale,
-                                        int dtype, cudaStream_t stream) {
+                                        int B, int S, int H, int KV, int dq,
+                                        int dv, int causal, int window,
+                                        float scale, int dtype,
+                                        cudaStream_t stream) {
   if (!shape_ok(B, S, H, KV)) return (int)cudaErrorInvalidValue;
 #define FA_ARGS q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream
-#define FA_F32(D) fwd_f32<D>(FA_ARGS)
-#define FA_BF16(D) fwd_bf16<D>(FA_ARGS)
+#define FA_F32(Q, V) fwd_f32<Q, V>(FA_ARGS)
+#define FA_BF16(Q, V) fwd_bf16<Q, V>(FA_ARGS)
   FA_DISPATCH(FA_F32, FA_BF16)
 #undef FA_F32
 #undef FA_BF16
 #undef FA_ARGS
 }
 
-// dout like o; delta [B, H, S] f32 scratch; dq like q, dk/dv like k.
+// dout like o; delta [B, H, S] f32 scratch; dq like q, dk like k, dv like v.
 extern "C" int arms_flash_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const float* lse,
-                                        float* delta, void* dq, void* dk,
-                                        void* dv, int B, int S, int H, int KV,
-                                        int dh, int causal, int window,
-                                        float scale, int dtype,
+                                        float* delta, void* dq_, void* dk,
+                                        void* dv_, int B, int S, int H,
+                                        int KV, int dq, int dv, int causal,
+                                        int window, float scale, int dtype,
                                         cudaStream_t stream) {
   if (!shape_ok(B, S, H, KV)) return (int)cudaErrorInvalidValue;
-#define FA_ARGS                                                             \
-  q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, \
+#define FA_ARGS                                                              \
+  q, k, v, o, dout, lse, delta, dq_, dk, dv_, B, S, H, KV, causal, window, \
       scale, stream
-#define FA_F32(D) bwd_f32<D>(FA_ARGS)
-#define FA_BF16(D) bwd_bf16<D>(FA_ARGS)
+#define FA_F32(Q, V) bwd_f32<Q, V>(FA_ARGS)
+#define FA_BF16(Q, V) bwd_bf16<Q, V>(FA_ARGS)
   FA_DISPATCH(FA_F32, FA_BF16)
 #undef FA_F32
 #undef FA_BF16

@@ -43,8 +43,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Causal (optionally windowed) GQA attention
-    (``ref.flash_attention_ref``): q ``[B, S, H, dh]``, k/v
-    ``[B, S, KV, dh]`` -> ``[B, S, H, dh]`` in q's dtype."""
+    (``ref.flash_attention_ref``): q ``[B, S, H, dq]``, k ``[B, S, KV,
+    dq]``, v ``[B, S, KV, dv]`` -> ``[B, S, H, dv]`` in q's dtype; on the
+    card ``(dq, dv)`` is one of ``kernel.HEAD_DIMS``."""
     if q.device.type == "cuda":
         return _FlashAttention.apply(_dense(q), _dense(k), _dense(v),
                                      causal, window)

@@ -2,9 +2,11 @@
 
 The contract of the CUDA kernels (kernel.py) and what the op runs for
 tensors on the CPU: the port of ``repro/kernels/flash_attention/ref.py``
-op for op (scores in the inputs' dtype, then f32, scaled by dh^-0.5,
+op for op (scores in the inputs' dtype, then f32, scaled by dq^-0.5,
 masked at -1e30, an f32 softmax cast to V's dtype before the second
-product).  Autograd through it gives the plain gradient.
+product), with v as wide as q or, as MLA's is, narrower (JAX's
+``xla_flash.flash_sdpa`` takes any v width).  Autograd through it gives
+the plain gradient.
 """
 from __future__ import annotations
 
@@ -14,10 +16,11 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: ``[B, S, H, dh]``, k/v: ``[B, S, KV, dh]`` -> ``[B, S, H, dh]``;
-    query head h reads KV head ``h // (H // KV)``."""
+    """q: ``[B, S, H, dq]``, k: ``[B, S, KV, dq]``, v: ``[B, S, KV, dv]``
+    -> ``[B, S, H, dv]``; query head h reads KV head ``h // (H // KV)``,
+    scores scaled by ``dq ** -0.5``."""
     B, S, H, dh = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[-1]
     rep = H // KV
     qg = q.reshape(B, S, KV, rep, dh)
     s = torch.einsum("bqkrd,bskd->bkrqs", qg, k).float()
@@ -32,4 +35,4 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", p, v)
-    return out.reshape(B, S, H, dh)
+    return out.reshape(B, S, H, dv)

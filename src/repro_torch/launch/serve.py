@@ -1,7 +1,8 @@
 """Serving launcher with a policy-tiered paged KV cache, in torch.
 
-The port of ``repro/launch/serve.py``: batched greedy decoding of a
-dense, vlm, hybrid or MoE (GQA) architecture (reduced by default,
+The port of ``repro/launch/serve.py``: batched greedy decoding of any
+attention architecture (dense, vlm, hybrid, MoE with GQA or MLA,
+enc-dec; reduced by default,
 ``--full`` for the published widths and depth; SSM models are refused,
 as the JAX launcher refuses them) while the KV pages of one attention
 layer live in a two-tier paged cache placed by ANY registered placement
@@ -26,6 +27,8 @@ Examples:
       --full --tokens 512 --batch 8 --policy memtis --capture /tmp/kv.npz
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llava-next-mistral-7b --full --tokens 128 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --full --tokens 128 --batch 8
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """End-to-end training launcher, in torch.
 
-The port of ``repro/launch/train.py`` for the dense, vlm, ssm, hybrid
-and MoE (GQA) families: config registry, synthetic data pipeline with
+The port of ``repro/launch/train.py`` for every model family: config
+registry, synthetic data pipeline with
 prefetch, the train step (gradient accumulation + AdamW with an f32
 master copy), async checkpointing with restart in the JAX store's
 format, preemption handling (SIGTERM -> checkpoint -> clean exit) and
@@ -14,11 +14,10 @@ Reduced configs by default; ``--full`` runs the published widths and
 depth.  Weights are random, drawn from a ``torch.Generator`` on the
 device seeded by ``seed``; the batches are the JAX package's, bit for
 bit.  Batches reach the card through pinned memory without a stream
-sync, and the loss is read on the host once a step.  A vlm's vision
-tower is stubbed as the JAX launcher stubs it: ``patch_embeds`` are f32
-zeros ``[batch, n_patches, d_model]``, made on the device.  MLA and
-enc-dec models raise ``NotImplementedError`` (the rest of the model
-families).
+sync, and the loss is read on the host once a step.  The front ends the
+configs stub are zeros made on the device (``stub_inputs``): a vlm's
+``patch_embeds`` in f32, as the JAX launcher makes them, and an enc-dec
+model's ``audio_embeds`` in the model's dtype.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
@@ -27,6 +26,8 @@ Examples:
       --full --steps 6 --batch 2 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --full --steps 6 --batch 1 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --full --steps 6 --batch 2 --seq 448
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.ft.preemption import PreemptionGuard
 from repro_torch.ft.stragglers import StragglerMonitor
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.utils.device import resolve_device
@@ -74,12 +76,23 @@ def to_device(batch_np: dict, device) -> dict:
 
 
 def stub_inputs(cfg, batch: int, device) -> dict:
-    """The inputs of a front end the model stubs, as the JAX launcher
-    makes them: a vlm's ``patch_embeds``, f32 zeros ``[batch, n_patches,
-    d_model]`` on ``device``; none for the other families."""
+    """The inputs of a front end the model stubs, zeros on ``device``: a
+    vlm's ``patch_embeds`` ``[batch, n_patches, d_model]`` in f32, as the
+    JAX launcher makes them (the model casts them to its dtype); an
+    enc-dec model's ``audio_embeds`` ``[batch, enc_seq, d_model]`` in the
+    model's dtype (``L.dtype_of(cfg)``).  The JAX launcher makes the
+    latter f32 too: at an f32 config the two are the same stub, and at a
+    bf16 one (whisper-small's) the JAX reference cannot trace its own f32
+    stub (ROADMAP queue 3) and traces with this one, while in eager torch
+    an f32 stub would run the encoder, and through the cross K/V the
+    decoder, in f32.  None for the other families."""
     if cfg.family == "vlm":
         return {"patch_embeds": torch.zeros(
             (batch, cfg.n_patches, cfg.d_model), dtype=torch.float32,
+            device=device)}
+    if cfg.family == "encdec":
+        return {"audio_embeds": torch.zeros(
+            (batch, cfg.enc_seq, cfg.d_model), dtype=L.dtype_of(cfg),
             device=device)}
     return {}
 

@@ -1,20 +1,27 @@
-"""GQA attention (plain tensor functions).
+"""GQA, cross and MLA attention (plain tensor functions).
 
-The port of ``repro/models/attention.py``'s ``gqa_init``, ``gqa_qkv``,
+The port of ``repro/models/attention.py``: ``gqa_init``, ``gqa_qkv``,
 ``causal_mask``, ``_sdpa``, ``gqa_full``, ``gqa_decode``,
-``gqa_decode_flat`` and ``KVCache``.  The full-sequence path (train,
-prefill) runs every sequence length through
-the flash attention op (``kernels/flash_attention``: the hand-written
-kernels and their gradient on the card, the plain version on the CPU),
-GQA native, where the JAX package takes its naive ``_sdpa`` below
-4,096 tokens and ``xla_flash.flash_sdpa`` from there on; all three
-compute the same function.  Decode takes either of the JAX package's
-cache layouts: one layer's ``[B, S, KV, dh]`` (``gqa_decode``, the
-hybrid family's shared block) or the stacked KV-major ``[L, B, KV, S,
-dh]`` (``gqa_decode_flat``), each written in place at the token's slot;
-scores and softmax run in f32 and the probabilities are cast to V's
-dtype before the second product.  MLA and cross attention wait for the
-rest of the model families.
+``gqa_decode_flat``, ``gqa_cross`` and ``KVCache``; and DeepSeek-V2's
+multi-head latent attention, ``mla_init``, ``MLACache``, ``_mla_q``,
+``_mla_kv_a``, ``mla_full``, ``mla_decode`` and ``mla_decode_flat``.
+The full-sequence paths (train, prefill) run every sequence length
+through the flash attention op (``kernels/flash_attention``: the
+hand-written kernels and their gradient on the card, the plain version
+on the CPU), GQA native, where the JAX package takes its naive
+``_sdpa`` (MLA: its naive scores) below 4,096 tokens and
+``xla_flash.flash_sdpa`` from there on; all three compute the same
+function.  MLA's q and k are ``nope + rope`` wide and its v ``v_head``
+wide, a pair the flash op takes.  Decode takes either of the JAX
+package's cache layouts: one layer's ``[B, S, KV, dh]`` (``gqa_decode``:
+the hybrid family's shared block, the whisper decoder's self attention)
+or the stacked KV-major ``[L, B, KV, S, dh]`` (``gqa_decode_flat``), each
+written in place at the token's slot; MLA decodes against the latent
+cache with the weights absorbed, in plain einsums as XLA computes it.
+Scores and softmax run in f32 and the probabilities are cast to V's (or
+x's) dtype before the second product.  Cross attention (whisper's
+decoder over the encoder's K/V) is the plain ``_sdpa``, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -158,3 +165,143 @@ def gqa_decode_flat(p, x, k_st, v_st, idx: int, pos: int, cfg, *,
     out = torch.einsum("bkrs,bksd->bkrd", probs, v_l)
     out = L.linear(p["wo"], out.reshape(B, 1, H * dh))
     return out, k_st, v_st
+
+
+def gqa_cross(p, x, enc_kv: KVCache, cfg):
+    """Cross attention (the whisper decoder): q from x ``[B, S, D]``, K/V
+    ``[B, Sk, KV, dh]`` precomputed from the encoder, no mask."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    q = L.linear(p["wq"], x).reshape(B, S, H, dh)
+    mask = torch.ones((B, 1, S, enc_kv.k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, enc_kv.k, enc_kv.v, mask, dh ** -0.5)
+    return L.linear(p["wo"], out.reshape(B, S, -1))
+
+
+# ---------------------------------------------------------------------- MLA
+def mla_init(gen, cfg, dtype, device, lead: tuple = ()) -> dict:
+    """DeepSeek-V2 multi-head latent attention (kv_lora compression): the
+    JAX package's leaves and shapes."""
+    D, H = cfg.d_model, cfg.n_heads
+    nope, rope_d, vd = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    R = cfg.kv_lora_rank
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    p = {"wkv_a": L.linear_init(gen, D, R + rope_d, **kw),
+         "kv_norm": L.rmsnorm_init(R, dtype, device, lead),
+         "wkv_b": L.linear_init(gen, R, H * (nope + vd), **kw),
+         "wo": L.linear_init(gen, H * vd, D, scale=0.5, **kw)}
+    if cfg.q_lora_rank:
+        p["wq_a"] = L.linear_init(gen, D, cfg.q_lora_rank, **kw)
+        p["q_norm"] = L.rmsnorm_init(cfg.q_lora_rank, dtype, device, lead)
+        p["wq_b"] = L.linear_init(gen, cfg.q_lora_rank,
+                                  H * (nope + rope_d), **kw)
+    else:
+        p["wq"] = L.linear_init(gen, D, H * (nope + rope_d), **kw)
+    return p
+
+
+@tensor_dataclass
+class MLACache:
+    """Latent cache: the compressed ``c_kv`` ``[B, S, kv_lora]`` and the
+    shared ``k_rope`` ``[B, S, rope_d]`` (stacked: ``[L, B, S, *]``)."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+
+
+def _mla_q(p, x, positions, cfg):
+    """-> (q_nope ``[B, S, H, nope]``, q_rope ``[B, S, H, rope_d]``)."""
+    B, S, _ = x.shape
+    H, nope, rope_d = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"],
+                                          L.linear(p["wq_a"], x),
+                                          cfg.norm_eps))
+    else:
+        q = L.linear(p["wq"], x)
+    q = q.reshape(B, S, H, nope + rope_d)
+    return q[..., :nope], L.apply_rope(q[..., nope:], positions,
+                                       cfg.rope_theta)
+
+
+def _mla_kv_a(p, x, positions, cfg):
+    """-> (c_kv ``[B, S, kv_lora]``, k_rope ``[B, S, rope_d]``: one head
+    shared by every query head)."""
+    kv = L.linear(p["wkv_a"], x)
+    R = cfg.kv_lora_rank
+    c_kv = L.rmsnorm(p["kv_norm"], kv[..., :R], cfg.norm_eps)
+    k_rope = L.apply_rope(kv[..., R:][:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_full(p, x, cfg, *, causal: bool = True):
+    """Train/prefill: K/V materialised per head from the latent.  The
+    nope and rope parts of q and k are concatenated (k_rope broadcast to
+    every head, as the JAX package does), so the scores are one product
+    of width ``nope + rope_d`` scaled by its inverse square root, through
+    the flash op with v ``v_head`` wide.  Returns ``(out, MLACache)``."""
+    B, S, _ = x.shape
+    H, nope, rope_d = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_kv_a(p, x, positions, cfg)
+    kvb = L.linear(p["wkv_b"], c_kv).reshape(B, S, H, -1)
+    k_nope, v = kvb[..., :nope], kvb[..., nope:]
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)],
+                      dim=-1)
+    out = flash_ops.flash_attention(q_cat, k_cat, v, causal=causal)
+    out = L.linear(p["wo"], out.reshape(B, S, -1))
+    return out, MLACache(c_kv=c_kv, k_rope=k_rope)
+
+
+def _mla_absorbed(p, x, q_nope, q_rope, c_kv, k_rope, pos: int, cfg):
+    """One token's attention in the latent space: q_nope absorbed into
+    ``wkv_b``'s key half, scores over the latent cache ``c_kv [B, S, R]``
+    plus the rope part over ``k_rope [B, S, rope_d]``, positions past
+    ``pos`` masked, the output read back through the value half."""
+    B = x.shape[0]
+    H, nope, rope_d = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    R = cfg.kv_lora_rank
+    wkv_b = p["wkv_b"]["w"].reshape(R, H, -1)
+    w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_k)
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope))
+    scores = scores.float() * (nope + rope_d) ** -0.5
+    mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+    out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_v)
+    return L.linear(p["wo"], out.reshape(B, 1, -1))
+
+
+def mla_decode(p, x, cache: MLACache, pos: int, cfg):
+    """Decode with weight absorption against one layer's latent cache
+    (``c_kv [B, S_max, R]``, ``k_rope [B, S_max, rope_d]``), written in
+    place at ``pos`` (a host int).  Returns ``(out [B, 1, D], cache)``."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_new, kr_new = _mla_kv_a(p, x, positions, cfg)
+    cache.c_kv[:, pos] = c_new[:, 0]
+    cache.k_rope[:, pos] = kr_new[:, 0]
+    return _mla_absorbed(p, x, q_nope, q_rope, cache.c_kv, cache.k_rope,
+                         pos, cfg), cache
+
+
+def mla_decode_flat(p, x, c_st, r_st, idx: int, pos: int, cfg):
+    """``mla_decode`` against the stacked latent caches ``c_st [L, B, S,
+    R]`` and ``r_st [L, B, S, rope_d]``, layer ``idx`` written in place.
+    Returns ``(out, c_st, r_st)``."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_new, kr_new = _mla_kv_a(p, x, positions, cfg)
+    c_st[idx, :, pos] = c_new[:, 0]
+    r_st[idx, :, pos] = kr_new[:, 0]
+    return _mla_absorbed(p, x, q_nope, q_rope, c_st[idx], r_st[idx], pos,
+                         cfg), c_st, r_st

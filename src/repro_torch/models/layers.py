@@ -1,6 +1,7 @@
 """Core neural layers (plain tensor functions over explicit param dicts).
 
-The port of ``repro/models/layers.py`` for the dense and ssm families.
+The port of ``repro/models/layers.py``: RMSNorm, linear, RoPE, SwiGLU,
+the GELU MLP, embeddings, the sinusoidal positions and the loss.
 Params are nested dicts of tensors in the JAX package's layout (``x @
 w`` with ``w`` ``[d_in, d_out]``), so ``convert.model_params`` carries a
 JAX parameter tree across leaf by leaf.  Matmuls run in the config dtype
@@ -102,6 +103,18 @@ def swiglu(p: dict, x):
     return linear(p["wo"], F.silu(gate) * up)
 
 
+# ------------------------------------------------------------- GELU MLP
+def gelu_mlp_init(gen, d: int, f: int, dtype, device,
+                  lead: tuple = ()) -> dict:
+    return {"wi": linear_init(gen, d, f, dtype, device, lead=lead),
+            "wo": linear_init(gen, f, d, dtype, device, lead=lead)}
+
+
+def gelu_mlp(p: dict, x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return linear(p["wo"], F.gelu(linear(p["wi"], x), approximate="tanh"))
+
+
 # -------------------------------------------------------------- Embeddings
 def embedding_init(gen, vocab: int, d: int, dtype, device) -> dict:
     return {"table": normal((vocab, d), 0.02, dtype, gen, device)}
@@ -113,6 +126,43 @@ def embed(p: dict, ids):
 
 def unembed(p: dict, x):
     return x @ p["table"].T
+
+
+def _sinusoid_rows(positions, d: int):
+    """``[len(positions), d]`` f32 on the CPU: the angles ``pos / 10_000
+    ** (dim / d)`` in f32 as XLA's compiled program forms them (``pos``
+    times the f32 reciprocal of the power, the power rounded once from
+    f64), their sin at the even columns and cos at the odd ones taken in
+    f64 and rounded once, as ``apply_rope`` takes RoPE's, so every device
+    gets the same bits."""
+    expo = torch.arange(0, d, 2, dtype=torch.float32) / d
+    inv = 1.0 / (10_000.0 ** expo.double()).float()
+    ang = (positions.float()[:, None] * inv).double()
+    pe = torch.empty((len(positions), d), dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(ang).float()
+    pe[:, 1::2] = torch.cos(ang).float()   # d is even for all our configs
+    return pe
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoids(seq: int, d: int, device):
+    return _sinusoid_rows(torch.arange(seq), d).to(device)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None):
+    """``[seq, d]`` f32 sinusoidal position table (whisper's), computed on
+    the CPU once per shape and copied to ``device``."""
+    return _sinusoids(seq, d, torch.device(device or "cpu"))
+
+
+def sinusoidal_at(pos: int, d: int, device=None):
+    """The sinusoidal embedding ``[d]`` f32 of one position (a host int):
+    ``sinusoidal_positions``' row ``pos``, bit for bit.  It reaches the
+    card through pinned memory, so a decode step does not synchronise."""
+    row = _sinusoid_rows(torch.tensor([pos]), d)[0]
+    device = torch.device(device or "cpu")
+    return row.pin_memory().to(device, non_blocking=True) \
+        if device.type == "cuda" else row
 
 
 def cross_entropy(logits, labels, vocab: int):

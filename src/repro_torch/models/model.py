@@ -1,5 +1,5 @@
-"""Model assembly: the dense, vlm, ssm, hybrid and MoE (GQA) families of
-``repro/models/model.py``.
+"""Model assembly: every family of ``repro/models/model.py`` (dense, vlm,
+ssm, hybrid, MoE with GQA or MLA, enc-dec).
 
 API (the JAX package's):
   init_params(cfg, gen=None, device=None)        -> params dict
@@ -11,14 +11,19 @@ API (the JAX package's):
   count_params(cfg)                              -> int
 ``batch``: {"tokens": [B, S], "labels": [B, S]} int tensors, plus a vlm's
 ``patch_embeds`` ``[B, n_patches, d_model]``, put before the tokens (its
-labels are padded with -1 over the patches).
+labels are padded with -1 over the patches), or an enc-dec model's
+``audio_embeds`` ``[B, enc_seq, d_model]`` (the encoder runs in their
+dtype).
 
 Params keep the JAX package's tree: ``embed``/``unembed``/``final_norm``
 and the stacked layer trees, whose leaves carry leading layer axes:
 ``[L]`` for ``layers``, ``[n_super]`` for an MoE model's
 ``dense_layers``/``moe_layers``, ``[n_groups, group]`` for a hybrid's
 ``mamba_groups`` (and ``[tail]`` for its ``mamba_tail``), beside its one
-``shared_attn`` block.  The JAX package scans over those axes.  Here
+``shared_attn`` block; an MLA model's ``layer0`` (unstacked) and
+``[L - first_dense]`` ``moe_layers``; an enc-dec model's ``enc_layers``
+``[n_enc_layers]`` and ``dec_layers`` ``[L]`` (its unembedding is the
+embedding table).  The JAX package scans over those axes.  Here
 decode indexes them layer by layer (a view, no copy) and writes each
 layer's new cache entries (a token's K/V, or a mamba layer's conv window
 and state) into the stacked cache in place; the full-sequence forward
@@ -26,11 +31,11 @@ takes every layer at once with ``torch.unbind`` (nested for the
 hybrid's groups), whose backward is one ``stack`` per leaf rather than a
 zero gradient of the whole stack per layer.  ``remat=True`` wraps each
 layer (a hybrid's whole group with its shared block, an MoE model's
-dense + MoE super-layer) in ``torch.utils.checkpoint`` (non-reentrant),
-the counterpart of ``jax.checkpoint``.  A family table like the JAX
-package's ``_FAMILY`` dispatches; MLA (deepseek-v2) and enc-dec
-(whisper) raise ``NotImplementedError`` until the rest of the model
-families ports them.
+dense + MoE super-layer, an MLA model's MoE layers but not its layer 0,
+an enc-dec model's decoder layers with their cross K/V but not the
+encoder) in ``torch.utils.checkpoint`` (non-reentrant), the counterpart
+of ``jax.checkpoint`` where the JAX package applies it.  A family table
+like the JAX package's ``_FAMILY`` dispatches.
 """
 from __future__ import annotations
 
@@ -185,6 +190,64 @@ def _moe_alt_decode(p, token, cache, pos: int, cfg):
     return _logits(p, x, cfg), cache
 
 
+# deepseek-style: the first layer dense (MLA), the rest MoE (MLA).
+def _moe_mla_init(gen, cfg, dtype, device):
+    return {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                      dtype, device),
+            "layer0": B.mla_dense_block_init(gen, cfg, dtype, device),
+            "moe_layers": B.moe_block_init(
+                gen, cfg, dtype, device,
+                lead=(cfg.n_layers - cfg.first_dense,)),
+            "final_norm": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "unembed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype, device)}
+
+
+def _moe_mla_layer(h, p_l, cfg):
+    """One MoE (MLA) layer -> ``(h, aux)``."""
+    h, _, aux, _ = B.moe_block_full(p_l, h, cfg)
+    return h, aux
+
+
+def _moe_mla_forward(p, batch, cfg, remat: bool = False):
+    x = L.embed(p["embed"], batch["tokens"])
+    x, _ = B.mla_dense_block_full(p["layer0"], x, cfg)   # not under remat
+    aux = _zero_aux(x)
+    n_moe = cfg.n_layers - cfg.first_dense
+    for p_l in _unstack(p["moe_layers"], n_moe):
+        x, aux_l = _run(_moe_mla_layer, x, p_l, cfg, remat)
+        aux = aux + aux_l
+    return _logits(p, x, cfg), aux
+
+
+def _mla_zeros(cfg, bsz: int, s: int, lead: tuple, dtype, device):
+    """Zero ``MLACache``: ``lead + [B, S, kv_lora]`` and ``lead + [B, S,
+    rope_d]``."""
+    return A.MLACache(
+        c_kv=torch.zeros(lead + (bsz, s, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros(lead + (bsz, s, cfg.rope_head_dim), dtype=dtype,
+                           device=device))
+
+
+def _moe_mla_cache(cfg, bsz: int, s_max: int, dtype, device):
+    return {"layer0": _mla_zeros(cfg, bsz, s_max, (), dtype, device),
+            "moe": _mla_zeros(cfg, bsz, s_max,
+                              (cfg.n_layers - cfg.first_dense,), dtype,
+                              device)}
+
+
+def _moe_mla_decode(p, token, cache, pos: int, cfg):
+    x = L.embed(p["embed"], token)
+    x, _ = B.mla_dense_block_decode(p["layer0"], x, cache["layer0"], pos,
+                                    cfg)
+    m = cache["moe"]
+    for i in range(cfg.n_layers - cfg.first_dense):
+        x, _, _ = B.moe_block_decode_flat(_layer(p["moe_layers"], i), x,
+                                          (m.c_kv, m.k_rope), i, pos, cfg)
+    return _logits(p, x, cfg), cache
+
+
 # ==================================================================== SSM
 def _ssm_init(gen, cfg, dtype, device):
     return {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
@@ -315,6 +378,73 @@ def _hybrid_decode(p, token, cache, pos: int, cfg):
     return _logits(p, x, cfg), cache
 
 
+# ================================================================= enc-dec
+# whisper-style: an encoder over stubbed frame embeddings, a decoder with
+# cross attention to it; sinusoidal positions on both sides, no RoPE.
+def _encdec_init(gen, cfg, dtype, device):
+    return {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                      dtype, device),
+            "enc_layers": B.encoder_block_init(gen, cfg, dtype, device,
+                                               lead=(cfg.n_enc_layers,)),
+            "enc_norm": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "dec_layers": B.decoder_block_init(gen, cfg, dtype, device,
+                                               lead=(cfg.n_layers,)),
+            "final_norm": L.rmsnorm_init(cfg.d_model, dtype, device)}
+
+
+def _encode(p, audio_embeds, cfg):
+    """The encoder over ``audio_embeds`` ``[B, S_enc, D]``, in their dtype
+    (not under remat, as in the JAX package)."""
+    x = audio_embeds + L.sinusoidal_positions(
+        audio_embeds.shape[1], cfg.d_model,
+        audio_embeds.device).to(audio_embeds.dtype)[None]
+    for p_l in _unstack(p["enc_layers"], cfg.n_enc_layers):
+        x = B.encoder_block_full(p_l, x, cfg)
+    return L.rmsnorm(p["enc_norm"], x, cfg.norm_eps)
+
+
+def _decoder_layer(h, pe, cfg):
+    """One decoder layer with its cross K/V from the encoder's output."""
+    p_l, enc_out = pe
+    return B.decoder_block_full(p_l, h, B.cross_kv(p_l, enc_out, cfg),
+                                cfg)[0]
+
+
+def _encdec_forward(p, batch, cfg, remat: bool = False):
+    enc_out = _encode(p, batch["audio_embeds"], cfg)
+    S = batch["tokens"].shape[1]
+    x = L.embed(p["embed"], batch["tokens"])
+    x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(
+        x.dtype)[None]
+    for p_l in _unstack(p["dec_layers"], cfg.n_layers):
+        x = _run(_decoder_layer, x, (p_l, enc_out), cfg, remat)
+    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return L.unembed(p["embed"], x), _zero_aux(x)
+
+
+def _encdec_cache(cfg, bsz: int, s_max: int, dtype, device):
+    """``self``: ``KVCache`` ``[L, B, S, KV, dh]``; ``cross``: ``KVCache``
+    ``[L, B, enc_seq, KV, dh]``, zeros as the JAX package makes them."""
+    def kv(s):
+        return A.KVCache(*(torch.zeros(
+            (cfg.n_layers, bsz, s, cfg.n_kv_heads, cfg.head_dim),
+            dtype=dtype, device=device) for _ in range(2)))
+
+    return {"self": kv(s_max), "cross": kv(cfg.enc_seq)}
+
+
+def _encdec_decode(p, token, cache, pos: int, cfg):
+    x = L.embed(p["embed"], token)
+    x = x + L.sinusoidal_at(pos, cfg.d_model, x.device).to(x.dtype)
+    sf, cr = cache["self"], cache["cross"]
+    for i in range(cfg.n_layers):
+        x, _ = B.decoder_block_decode(
+            _layer(p["dec_layers"], i), x, A.KVCache(k=sf.k[i], v=sf.v[i]),
+            A.KVCache(k=cr.k[i], v=cr.v[i]), pos, cfg)
+    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return L.unembed(p["embed"], x), cache
+
+
 # ================================================================ dispatch
 _FAMILY = {
     "dense": (_dense_init, _dense_forward, _dense_cache, _dense_decode),
@@ -322,22 +452,19 @@ _FAMILY = {
     "ssm": (_ssm_init, _ssm_forward, _ssm_cache, _ssm_decode),
     "hybrid": (_hybrid_init, _hybrid_forward, _hybrid_cache,
                _hybrid_decode),
+    "encdec": (_encdec_init, _encdec_forward, _encdec_cache,
+               _encdec_decode),
 }
 
 
 def _family_fns(cfg):
-    if cfg.family == "moe" and not cfg.use_mla:
+    if cfg.family == "moe":
+        if cfg.use_mla:
+            return (_moe_mla_init, _moe_mla_forward, _moe_mla_cache,
+                    _moe_mla_decode)
         return (_moe_alt_init, _moe_alt_forward, _moe_alt_cache,
                 _moe_alt_decode)
-    fns = _FAMILY.get(cfg.family)
-    if fns is None:
-        what = "moe family with MLA" if cfg.family == "moe" \
-            else f"{cfg.family} family"
-        raise NotImplementedError(
-            f"{cfg.name}: the {what} is not ported yet (the rest of the "
-            f"model families); the port runs the dense, vlm, ssm, hybrid "
-            f"and moe (GQA) families")
-    return fns
+    return _FAMILY[cfg.family]
 
 
 def init_params(cfg, gen: torch.Generator | None = None, device=None):
@@ -378,7 +505,10 @@ def init_cache(cfg, bsz: int, s_max: int, device=None):
     (dense, vlm; ``S`` the window where that is shorter), ``MambaCache``
     (ssm: ``[L, B, K-1, conv_dim]`` and ``[L, B, H, P, N]``, independent
     of ``s_max``), ``{"dense", "moe"}`` of ``[n_super, B, KV, S, dh]``
-    (moe) or the hybrid's ``{"mamba_groups", "attn", "mamba_tail"}``
+    (moe with GQA), ``{"layer0", "moe"}`` of ``MLACache`` (moe with MLA:
+    ``[B, S, kv_lora]``/``[B, S, rope_d]``, the MoE layers' stacked),
+    ``{"self", "cross"}`` of ``KVCache`` (enc-dec, ``_encdec_cache``) or
+    the hybrid's ``{"mamba_groups", "attn", "mamba_tail"}``
     (``_hybrid_cache``)."""
     return _family_fns(cfg)[2](cfg, bsz, s_max, L.dtype_of(cfg),
                                resolve_device(device))

@@ -141,13 +141,15 @@ FLASH_SHAPES = [(2, 40, 4, 4, 16, True, 0), (2, 40, 4, 2, 16, False, 0),
                 (1, 257, 4, 4, 16, True, 1), (1, 96, 4, 2, 64, False, 17)]
 
 
-def flash_case(B, S, H, KV, dh, seed):
-    """(q, k, v, cotangent) f32 numpy arrays, standard normal."""
+def flash_case(B, S, H, KV, dh, seed, dv=None):
+    """(q, k, v, cotangent) f32 numpy arrays, standard normal; v and the
+    cotangent ``dv`` wide (``dh`` by default)."""
+    dv = dv or dh
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, H, dh)).astype(np.float32)
     k = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
-    v = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
-    do = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, dv)).astype(np.float32)
+    do = rng.standard_normal((B, S, H, dv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -164,6 +166,20 @@ HYBRID_TRAIN_SHAPE = (2, 4096, 64, 64, 64, 64)
 # llava-next-mistral-7b's 576 patches + 4,096 tokens, llama4-scout's 40
 # query heads over 8 (a group of 5) with its 8,192 window, and the same
 # heads under a window shorter than the sequence
+# (B, S, H, KV, dq, dv, causal, window): MLA's unequal widths, reduced
+# (32, 16) and deepseek-v2's (192, 128): causal, non-causal, windowed,
+# ragged S (37 and whisper's 1,500 frames), GQA rep 2 and 4; and
+# whisper-small's encoder (12 heads of 64, non-causal, S 1,500)
+MLA_FLASH_SHAPES = [(2, 40, 4, 4, 32, 16, True, 0),
+                    (2, 37, 4, 2, 32, 16, False, 0),
+                    (1, 300, 4, 1, 32, 16, True, 48),
+                    (1, 1500, 4, 2, 32, 16, False, 0),
+                    (1, 130, 4, 4, 192, 128, True, 0),
+                    (2, 37, 4, 4, 192, 128, False, 0),
+                    (1, 300, 4, 2, 192, 128, True, 48),
+                    (1, 1500, 2, 2, 192, 128, False, 0),
+                    (1, 1500, 12, 12, 64, 64, False, 0)]
+
 FAMILY_FLASH_SHAPES = [(2, 4672, 32, 8, 128, True, 0),
                        (2, 4096, 40, 8, 128, True, 8192),
                        (1, 2048, 40, 8, 128, True, 1024)]

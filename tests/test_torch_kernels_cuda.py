@@ -817,18 +817,20 @@ def test_out_of_range_indices_stay_inside_the_pools(card):
 # ---------------------------------------------------------- flash attention
 from _torch_cases import FAMILY_FLASH_SHAPES  # noqa: E402
 from _torch_cases import FLASH_SHAPES, flash_case  # noqa: E402
+from _torch_cases import MLA_FLASH_SHAPES  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 
 
-def _flash_on_card(card, shape, dtype):
+def _flash_on_card(card, shape, dtype, dv=None):
     """Kernel forward and backward on the card, and the plain version's
     output and autograd gradient computed in f32 from the same (rounded)
-    inputs."""
+    inputs; v ``dv`` wide (q's width by default)."""
     B, S, H, KV, dh, causal, window = shape
     q, k, v, do = (_t(a).to(card, dtype)
-                   for a in flash_case(B, S, H, KV, dh, sum(shape)))
+                   for a in flash_case(B, S, H, KV, dh, sum(shape) + (dv or 0),
+                                       dv))
     kw = dict(causal=causal, window=window)
     out, lse = _launches("flash_attention_fwd",
                          lambda: fkernel.flash_attention_fwd(q, k, v, **kw))
@@ -1035,6 +1037,66 @@ def test_flash_attention_bf16_alignment(card):
         fkernel.flash_attention_fwd(odd, k, v)
     assert torch.equal(fops.flash_attention(odd, k, v),
                        fkernel.flash_attention_fwd(q, k, v)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MLA_FLASH_SHAPES)
+def test_flash_attention_unequal_widths_vs_plain(card, shape, dtype):
+    """q and k ``dq`` wide, v ``dv`` wide (MLA's pairs) and whisper's
+    encoder: forward and backward against the plain version in f32 from
+    the same inputs (f32 output within 2e-5 and gradients within 1e-4 of
+    the largest entry; bf16 within 2e-2), the output and dV ``dv`` wide,
+    dQ and dK ``dq`` wide, and the same bits from two backward runs."""
+    B, S, H, KV, dq, dv, causal, window = shape
+    (q, k, v, do), (out, lse, grads), (want, wgrads) = _flash_on_card(
+        card, (B, S, H, KV, dq, causal, window), dtype, dv)
+    assert out.shape == (B, S, H, dv) and out.dtype == dtype
+    assert [g.shape[-1] for g in grads] == [dq, dq, dv]
+    if dtype == torch.float32:
+        _within_of_max(out, want, 2e-5)
+        _grads_within(grads, wgrads, 1e-4)
+    else:
+        assert float((out.float() - want).abs().max()) <= 2e-2
+        _grads_within(grads, wgrads, 2e-2)
+    assert bool(torch.isfinite(lse).all())
+    again = fkernel.flash_attention_bwd(q, k, v, out, lse, do,
+                                        causal=causal, window=window)
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_op_routes_unequal_widths(card, dtype):
+    """``ops.flash_attention`` at deepseek-v2's (192, 128): one launch of
+    each kernel, the kernels' own bits, and a pair outside ``HEAD_DIMS``
+    (v of another width than its pair's) raises in both passes'
+    wrapper."""
+    q, k, v, do = (_t(a).to(card, dtype)
+                   for a in flash_case(1, 70, 4, 2, 192, 9, dv=128))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(_backend.launches)
+    out = fops.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for nm in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert _backend.launches[nm] == before.get(nm, 0) + 1
+    w_out, lse = fkernel.flash_attention_fwd(q, k, v)
+    assert torch.equal(out.detach(), w_out)
+    for g, w in zip(grads, fkernel.flash_attention_bwd(q, k, v, w_out, lse,
+                                                       do)):
+        assert torch.equal(g, w)
+    for dq, dv in ((192, 64), (128, 192), (32, 32), (64, 16)):
+        qq, kk, vv, dd = (_t(a).to(card, dtype)
+                          for a in flash_case(1, 8, 2, 2, dq, 1, dv=dv))
+        with pytest.raises(ValueError, match="head widths"):
+            fkernel.flash_attention_fwd(qq, kk, vv)
+        with pytest.raises(ValueError, match="head widths"):
+            fops.flash_attention(qq, kk, vv)
+        with pytest.raises(ValueError, match="head widths"):
+            fkernel.flash_attention_bwd(qq, kk, vv, dd, torch.zeros(
+                (1, 2, 8), device=card), dd)
 
 
 # ------------------------------------------------------------- score update
