@@ -64,7 +64,7 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      and timed at the study's 216 lanes (TPP's plans at its 144), and one
      lane of the accounting kernel embedded in batches of 1, 9, 21, 168
      and 216 lanes, bit for bit the same (2 and 3 tiers);
-  3. main path, forty-nine paths, each with every launch count set to 0 just
+  3. main path, fifty-two paths, each with every launch count set to 0 just
      before it and read just after (each kernel of the path must have
      been launched, and ``migrate`` exactly once a fire of a tiered pool
      with buffers to move): ``sweep_arms_configs`` over a 16-lane
@@ -150,7 +150,19 @@ It imports the port only (``src/repro_torch``), never JAX, and:
      tokens (with the device ms a token; 32 tokens under CUDA events
      before it) and of one training step, CUDA
      events split a serving token into model decode and tiered layer and
-     a training step into forward, backward and optimizer; then
+     a training step into forward, backward and optimizer; then the
+     launch layer's mesh paths (``mesh_paths``) on a (1, 1) ("data",
+     "model") DTensor mesh over a one-rank NCCL process group: the train
+     phase's first two steps again with params and AdamW state
+     distributed by ``param_shardings`` through ``make_train_step(...,
+     mesh=mesh)``, each step's loss and grad norm within 1e-6 relative of
+     the train phase's own and the params after them within 1e-6 of each
+     leaf's largest entry (bit for bit expected), a ``make_prefill_step(
+     ..., mesh=mesh)`` whose logits are within 1e-6 of the mesh-free
+     prefill's, and 8 greedy tokens of granite-8b at full width (batch 8)
+     through ``make_serve_step`` on DTensor params (``serve=True``) and
+     cache (``cache_sharding``) equal to the mesh-free decode's, each way's
+     tok/s printed; then
      mamba2-370m at its full width and depth (48 layers, d_model 1,024,
      bf16 with f32 ``A_log``/``D``/``dt_bias``, random weights from the
      seed): ``launch.train.train`` for 6 AdamW steps at batch 2 x 4,096
@@ -242,6 +254,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -254,8 +267,10 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel as fkernel)
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as skernel  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.mamba_scan import ref as sref  # noqa: E402
 from repro_torch.kernels.score_update import (  # noqa: E402
     kernel as ukernel)
@@ -265,7 +280,8 @@ from repro_torch.baselines.arms_policy import (ARMSPolicy,  # noqa: E402
                                                ARMSSpec)
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
-from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.launch import serve, sharding, steps, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import mamba2 as Mb  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -1061,14 +1077,6 @@ FLASH_ROW_REL = 1e-2
 PLAIN_SCORE_BYTES = 8 * 2 ** 30
 
 
-def flash_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs of one head that the mask keeps."""
-    i = np.arange(S)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
-    hi = i if causal else np.full(S, S - 1)
-    return int((hi - lo + 1).sum())
-
-
 def plain_flash_f32(q, k, v, do, causal, window, kv_chunk: int = 8):
     """The plain version's output and gradient (``do`` None: output only),
     in f32 from the given inputs, a group of ``kv_chunk`` KV heads (and
@@ -1242,7 +1250,6 @@ def flash_rows(rows, rng):
                     o, leaves_, do[:, :, g0 * rep:g1 * rep]))
             return out
 
-        pairs = B_ * H * flash_pairs(S, causal, window)
         el = q.element_size()
         qkv_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * el
         for name, kern, plain, lib, args, bytes_, ops, err in (
@@ -1250,8 +1257,8 @@ def flash_rows(rows, rng):
                  lambda q, k, v, do: fkernel.flash_attention_fwd(
                      q, k, v, **kw),
                  plain_fwd, lib_fwd, (q, k, v, do),
-                 qkv_bytes + lse.numel() * 4, 2 * pairs * (dq + dv),
-                 err_out),
+                 qkv_bytes + lse.numel() * 4,
+                 fops.flops_fwd(B_, S, H, dq, dv, causal, window), err_out),
                 ("flash_attention_bwd",
                  lambda q, k, v, do, o, l: fkernel.flash_attention_bwd(
                      q, k, v, o, l, do, **kw),
@@ -1259,7 +1266,8 @@ def flash_rows(rows, rng):
                  lambda q4, k4, v4, mask, do, o, l: lib_fwd_bwd(
                      q4, k4, v4, mask, do),
                  (q, k, v, do, out, lse),
-                 2 * qkv_bytes + lse.numel() * 4, pairs * (6 * dq + 4 * dv),
+                 2 * qkv_bytes + lse.numel() * 4,
+                 fops.flops_bwd(B_, S, H, dq, dv, causal, window),
                  err_grad))[:1 if fwd_only else 2]:
             bms, by = bound(bytes_, ops, BF16_OPS_PER_S
                             if dt == torch.bfloat16 else F32_OPS_PER_S)
@@ -1294,22 +1302,6 @@ def flash_rows(rows, rng):
 MAMBA_ROWS = [("train: mamba2-370m", (2, 4096, 32, 64, 128, 64), True),
               ("train: zamba2-1.2b", (2, 4096, 64, 64, 64, 64), True),
               ("reduced mamba2-370m", (2, 32, 4, 32, 16, 8), False)]
-
-
-def scan_flops(B_, S, H, P, N_, Q) -> tuple:
-    """Operations (2 per multiply-add) the scan's forward and backward
-    need: per (b, chunk) the lower triangle of C . B^T, shared by the
-    heads; per head the lower triangle of the decay-masked product with
-    x dt, the chunk state and the off-diagonal output (2 QPN each); the
-    backward recomputes C . B^T and the states and adds the state
-    gradient (2 QPN), the triangle's two gradients for x dt and the decay,
-    those for B and C, and the state terms' gradients for B, C and x
-    (3 QPN)."""
-    nc, tri, qpn = S // Q, Q * (Q + 1) // 2, 2 * Q * P * N_
-    fwd = B_ * nc * (2 * tri * N_ + H * (2 * tri * P + 2 * qpn))
-    bwd = B_ * nc * (2 * tri * N_ + H * (4 * tri * P + 4 * tri * N_
-                                         + 5 * qpn))
-    return fwd, bwd
 
 
 def cs_ulp(dt, A, Q: int) -> float:
@@ -1407,7 +1399,7 @@ def mamba_rows(rows, rng):
 
         if model_like:
             scan_passes(ins, dy, Q, label)
-        ops_f, ops_b = scan_flops(B_, S, H, P, N_, Q)
+        ops_f, ops_b = sops.flops(B_, S, H, P, N_, Q)
         for name, kern, plain, args, bytes_, ops in (
                 ("mamba_scan_fwd",
                  lambda *a: skernel.mamba_scan_fwd(*a, chunk=Q),
@@ -1604,23 +1596,35 @@ def main_path(seed: int, held: set):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, wall4, train_counts = clocked("train", lambda: train.train(
-        TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, full=True,
-        seed=seed, log_every=1), TRAIN_KERNELS)
+    first, undo = recorded_train(MESH_STEPS)
+    try:
+        losses, wall4, train_counts = clocked("train", lambda: train.train(
+            TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, full=True,
+            seed=seed, log_every=1), TRAIN_KERNELS)
+    finally:
+        undo()
     require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
             f"train: losses {losses} not finite")
     tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    clone_gib = sum(t.numel() * t.element_size()
+                    for t in leaves(first["params"])) / 2 ** 30
     print(f"main path train {TRAIN_ARCH} full: steps={TRAIN_STEPS} "
           f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} wall_s={wall4:.3f} "
           f"tok_s_overall={tokens / wall4:.1f} loss_first={losses[0]:.4f} "
           f"loss_last={losses[-1]:.4f} peak_device_memory_gib="
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} (with the "
+          f"mesh check's clone of the params, {clone_gib:.2f}) "
           f"launches={train_counts}", flush=True)
+    first["to_host"]()
     train_breakdown(TRAIN_ARCH, seed, losses[0], (attn, "flash_ops",
                     types.SimpleNamespace(
                         flash_attention=fref.flash_attention_ref)),
                     lambda k: k.startswith("void fa_"), "attention")
     stamp("main path train")
+    meshed = mesh_paths(seed, first)
+    del first
+    torch.cuda.empty_cache()
+    stamp("main path mesh_paths")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1648,7 +1652,193 @@ def main_path(seed: int, held: set):
     return {"sweep_arms_configs": sweep_counts, "arms_sim": sim_counts,
             **fams, **eng, **synth, **tuned, **board, "serve": serve_counts,
             **families, **tiers, "train": train_counts,
-            "train_ssm": ssm_counts, **paths, **models, **newer}
+            **meshed, "train_ssm": ssm_counts, **paths, **models, **newer}
+
+
+# the mesh paths: the train phase's first MESH_STEPS steps again on a
+# (1, 1) mesh, and granite-8b's decode of MESH_TOKENS tokens at batch
+# MESH_BATCH (a cache of MESH_SEQ positions) with and without the mesh
+MESH_STEPS, MESH_TOKENS, MESH_BATCH, MESH_SEQ = 2, 8, 8, 64
+MESH_DECODE_ARCH = "granite-8b"
+
+
+def recorded_train(n: int):
+    """Wrap ``steps.make_train_step`` (which ``train.train`` calls through
+    the module) so the steps it makes record their first ``n`` calls'
+    loss, grad norm and seconds, and the params after the ``n``-th,
+    cloned on the card (``params``; ``to_host`` moves them to the host
+    once the timed run is over) -> (the record, the undo).  The syncs
+    around each step cost nothing more: ``train.train`` reads each
+    step's loss on the host right after it."""
+    rec = {"metrics": [], "params": None, "copy_s": 0.0}
+
+    def to_host():
+        t1 = time.time()
+        rec["params"] = map_leaves(lambda t: t.to("cpu"), rec["params"])
+        rec["copy_s"] = time.time() - t1
+
+    rec["to_host"] = to_host
+    make = steps.make_train_step
+
+    def making(*a, **kw):
+        step = make(*a, **kw)
+
+        def recording(params, state, batch):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            if len(rec["metrics"]) < n:
+                rec["metrics"].append((float(m["loss"]),
+                                       float(m["grad_norm"]),
+                                       time.time() - t0))
+                if len(rec["metrics"]) == n:
+                    rec["params"] = map_leaves(
+                        lambda t: t.detach().clone(), params)
+            return params, state, m
+
+        return recording
+
+    steps.make_train_step = making
+    return rec, lambda: setattr(steps, "make_train_step", make)
+
+
+def plain(t):
+    """A DTensor's whole value (this one card's), else ``t``."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_paths(seed: int, first: dict) -> dict:
+    """The launch layer on the card: a one-rank NCCL process group and a
+    (1, 1) ("data", "model") mesh, destroyed at the end.
+    - ``mesh_train``: the train phase's arch at full width, params and
+      AdamW state from the same seed distributed by ``param_shardings``,
+      ``MESH_STEPS`` steps of ``make_train_step(..., mesh=mesh)`` on the
+      same batches: each step's loss and grad norm held to the train
+      phase's own first steps (``recorded_train``) at 1e-6 relative, the
+      params after them (``full_tensor()``) within 1e-6 of each leaf's
+      largest entry of the train phase's (bit for bit expected);
+    - ``mesh_prefill``: one ``make_prefill_step(..., mesh=mesh)`` on the
+      first batch's tokens, logits within 1e-6 of the largest entry of the
+      mesh-free prefill's from the same params;
+    - ``mesh_serve``: ``MESH_TOKENS`` greedy tokens of
+      ``MESH_DECODE_ARCH`` at full width through ``make_serve_step`` with
+      params distributed by ``param_shardings(serve=True)`` and the cache
+      by ``cache_sharding``, equal to the mesh-free decode's.
+    Printed, not gated: each way's tok/s (DTensor's host overhead)."""
+    dev = torch.device("cuda")
+    mesh_lib.bring_up("nccl")
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        cfg, opt_cfg, params, state = train.setup(TRAIN_ARCH, TRAIN_STEPS,
+                                                  True, seed, dev)
+        params = sharding.distribute_tree(
+            params, sharding.param_shardings(params, mesh), mesh)
+        state = sharding.distribute_tree(
+            state, sharding.param_shardings(state, mesh), mesh)
+        step = steps.make_train_step(cfg, opt_cfg, remat=False, mesh=mesh)
+        data = SyntheticLM(cfg.vocab_size_raw, TRAIN_SEQ, TRAIN_BATCH,
+                           seed=seed)
+        batch_at = lambda i: {**train.to_device(data.batch_at(i), dev),
+                              **train.stub_inputs(cfg, TRAIN_BATCH, dev)}
+        got = []
+
+        def run_train():
+            nonlocal params, state
+            for i in range(MESH_STEPS):
+                batch = batch_at(i)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                params, state, m = step(params, state, batch)
+                torch.cuda.synchronize()
+                got.append((float(plain(m["loss"])),
+                            float(plain(m["grad_norm"])), time.time() - t0))
+
+        _, _, train_counts = counted("mesh_train", run_train, TRAIN_KERNELS)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        for i, (g, w) in enumerate(zip(got, first["metrics"])):
+            rel = [abs(a - b) / abs(b) for a, b in zip(g[:2], w[:2])]
+            print(f"mesh_train {TRAIN_ARCH} full step {i}: loss {g[0]!r} "
+                  f"vs {w[0]!r}, grad norm {g[1]!r} vs {w[1]!r} (rel "
+                  f"{rel[0]:.3e}, {rel[1]:.3e}); tok/s {tokens / g[2]:.1f} "
+                  f"on the mesh, {tokens / w[2]:.1f} without", flush=True)
+            require(max(rel) <= 1e-6, f"mesh_train step {i}: loss / grad "
+                    f"norm rel {rel}")
+        worst, worst_at, n_diff = 0.0, "", 0
+        for (path, w), d in zip(flatten_with_path(first["params"]),
+                                leaves(params)):
+            g, w = plain(d), w.to(dev)
+            err = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            n_diff += int((g != w).sum())
+            if err / max(top, 1e-30) >= worst:
+                worst, worst_at = err / max(top, 1e-30), "/".join(path)
+            require(err <= 1e-6 * top, f"mesh_train: params "
+                    f"{'/'.join(path)} differ by {err} (largest {top})")
+        print(f"mesh_train params after step {MESH_STEPS}: largest "
+              f"difference {worst:.3e} of its leaf's largest entry "
+              f"({worst_at}); {n_diff} elements differ; their copy to "
+              f"the host after the train phase {first['copy_s']:.2f}s; "
+              f"launches "
+              f"{train_counts}", flush=True)
+
+        batch = {"tokens": batch_at(0)["tokens"]}
+        local = map_leaves(lambda t: t.to_local(), params)
+        want = steps.make_prefill_step(cfg)(local, batch)
+        logits, wall, prefill_counts = counted(
+            "mesh_prefill", lambda: steps.make_prefill_step(
+                cfg, mesh=mesh)(params, batch), ("flash_attention_fwd",))
+        err = float((plain(logits).float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        print(f"mesh_prefill {TRAIN_ARCH} full: logits within "
+              f"{err / top:.3e} of the largest ({err} of {top}); "
+              f"{tokens / wall:.1f} tok/s on the mesh; launches "
+              f"{prefill_counts}", flush=True)
+        require(err <= 1e-6 * top, f"mesh_prefill: logits error {err}")
+        del params, state, local, logits, want
+        torch.cuda.empty_cache()
+
+        dcfg = registry.get_arch(MESH_DECODE_ARCH)
+        dparams = M.init_params(
+            dcfg, torch.Generator(device="cuda").manual_seed(seed), dev)
+        serve_step = steps.make_serve_step(dcfg)
+
+        def decode(p, cache):
+            tok = torch.full((MESH_BATCH, 1), 3, dtype=torch.int32,
+                             device=dev)
+            out = []
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for pos in range(MESH_TOKENS):
+                tok, cache = serve_step(p, tok, cache, pos)
+                out.append(plain(tok))
+            torch.cuda.synchronize()
+            return torch.cat(out, 1).cpu(), time.time() - t0
+
+        want, wall_free = decode(dparams, M.init_cache(
+            dcfg, MESH_BATCH, MESH_SEQ, dev))
+        cache = M.init_cache(dcfg, MESH_BATCH, MESH_SEQ, dev)
+        sparams = sharding.distribute_tree(
+            dparams, sharding.param_shardings(dparams, mesh, serve=True),
+            mesh)
+        cache = sharding.distribute_tree(
+            cache, sharding.cache_sharding(mesh, cache), mesh)
+        (got, wall_mesh), _, serve_counts = counted(
+            "mesh_serve", lambda: decode(sparams, cache), ())
+        n_tok = MESH_TOKENS * MESH_BATCH
+        print(f"mesh_serve {MESH_DECODE_ARCH} full: {MESH_TOKENS} greedy "
+              f"tokens at batch {MESH_BATCH}: tokens "
+              f"{'equal' if torch.equal(got, want) else 'DIFFER'} "
+              f"{got[0].tolist()}; tok/s {n_tok / wall_mesh:.1f} on the "
+              f"mesh, {n_tok / wall_free:.1f} without; launches "
+              f"{serve_counts}", flush=True)
+        require(torch.equal(got, want), f"mesh_serve: tokens {got.tolist()}"
+                f" vs {want.tolist()}")
+        del dparams, sparams, cache
+    finally:
+        mesh_lib.tear_down()
+    return {"mesh_train": train_counts, "mesh_prefill": prefill_counts,
+            "mesh_serve": serve_counts}
 
 
 # the other policy families: knob grids of 16 lanes (12 for HybridTier) on

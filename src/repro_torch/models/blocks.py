@@ -187,8 +187,8 @@ def cross_kv(p, enc_out, cfg):
     B, S, _ = enc_out.shape
     KV, dh = cfg.n_kv_heads, cfg.head_dim
     return A.KVCache(
-        k=L.linear(p["cross_attn"]["wk"], enc_out).reshape(B, S, KV, dh),
-        v=L.linear(p["cross_attn"]["wv"], enc_out).reshape(B, S, KV, dh))
+        k=A.split_heads(L.linear(p["cross_attn"]["wk"], enc_out), KV, dh),
+        v=A.split_heads(L.linear(p["cross_attn"]["wv"], enc_out), KV, dh))
 
 
 def _decoder_tail(p, x, enc_kv, cfg):

@@ -12,9 +12,13 @@ cannot reproduce ``jax.random``'s bits.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -55,8 +59,22 @@ def linear_init(gen, d_in: int, d_out: int, dtype, device, scale: float = 1.0,
                         device)}
 
 
+def fsdp_gather(w, x):
+    """A DTensor weight ``w`` gathered over the mesh dims that split
+    ``x``'s batch (the FSDP factor of the sharding rules, JAX's 'data'),
+    so that each device multiplies its own rows by the whole of its
+    tensor-parallel shard, as GSPMD does; anything else as it is."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return w
+    batch = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    if not any(isinstance(w.placements[i], Shard) for i in batch):
+        return w
+    return w.redistribute(w.device_mesh, [
+        Replicate() if i in batch else p for i, p in enumerate(w.placements)])
+
+
 def linear(p: dict, x):
-    return x @ p["w"]
+    return x @ fsdp_gather(p["w"], x)
 
 
 # -------------------------------------------------------------------- RoPE
@@ -121,11 +139,50 @@ def embedding_init(gen, vocab: int, d: int, dtype, device) -> dict:
 
 
 def embed(p: dict, ids):
-    return p["table"][ids]
+    table = p["table"]
+    if isinstance(table, DTensor):
+        return _embed_on_mesh(table, ids)
+    return table[ids]
+
+
+def _embed_on_mesh(table, ids):
+    """The lookup of each device's rows of ``ids`` in its vocab shard of
+    the table, gathered over its width: rows of other shards read as
+    zeros and the result is a partial sum over the vocab's mesh dims (a
+    vocab-parallel lookup; the plain lookup where the vocab is not
+    split, so a one-device mesh gives the plain bits).  The table's
+    gradient is a partial sum over the mesh dims that split ``ids``.
+    DTensor's own lookup backward (``index_put``) fails to propagate on
+    some PyTorch releases."""
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    layout = [Shard(0) if i in vocab else Replicate()
+              for i in range(mesh.ndim)]
+    local = table.redistribute(mesh, layout).to_local(grad_placements=[
+        Shard(0) if i in vocab else
+        Partial() if isinstance(p, Shard) else Replicate()
+        for i, p in enumerate(ids.placements)])
+    idx = ids.to_local()
+    if math.prod(mesh.shape[i] for i in vocab) == 1:
+        return DTensor.from_local(local[idx], mesh, ids.placements,
+                                  run_check=False)
+    start = compute_local_shape_and_global_offset(table.shape, mesh,
+                                                  layout)[1][0]
+    rel = idx - start
+    hit = (rel >= 0) & (rel < local.shape[0])
+    rows = torch.where(hit[..., None],
+                       local[rel.clamp(0, local.shape[0] - 1)], 0)
+    return DTensor.from_local(
+        rows, mesh, [Partial() if i in vocab else p
+                     for i, p in enumerate(ids.placements)],
+        run_check=False)
 
 
 def unembed(p: dict, x):
-    return x @ p["table"].T
+    return x @ fsdp_gather(p["table"], x).T
 
 
 def _sinusoid_rows(positions, d: int):
@@ -162,14 +219,23 @@ def sinusoidal_at(pos: int, d: int, device=None):
     row = _sinusoid_rows(torch.tensor([pos]), d)[0]
     device = torch.device(device or "cpu")
     return row.pin_memory().to(device, non_blocking=True) \
-        if device.type == "cuda" else row
+        if device.type == "cuda" else row.to(device)
+
+
+def settled(x) -> list:
+    """A DTensor ``x``'s placements with every partial sum reduced
+    (``Replicate``)."""
+    return [Replicate() if p.is_partial() else p for p in x.placements]
 
 
 def cross_entropy(logits, labels, vocab: int):
     """Mean token cross-entropy in f32; labels < 0 are masked out."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])
+    if isinstance(gold, DTensor):   # finish a vocab-sharded gather here
+        gold = gold.redistribute(gold.device_mesh, settled(gold))
+    gold = gold[..., 0]
     nll = logz - gold
     mask = (labels >= 0).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -3,12 +3,14 @@ ssm, hybrid, MoE with GQA or MLA, enc-dec).
 
 API (the JAX package's):
   init_params(cfg, gen=None, device=None)        -> params dict
-  forward(params, batch, cfg, remat=False)       -> (logits, aux_loss)
-  loss_fn(params, batch, cfg, remat=False)       -> scalar loss
+  forward(params, batch, cfg, remat=False, constrain=None)
+                                                 -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, remat=False, constrain=None) -> scalar loss
   prefill(params, batch, cfg)                    -> logits
   init_cache(cfg, bsz, s_max, device=None)       -> the family's cache
   decode_step(params, token, cache, pos, cfg)    -> (logits, cache)
   count_params(cfg)                              -> int
+  active_params(cfg)                             -> int
 ``batch``: {"tokens": [B, S], "labels": [B, S]} int tensors, plus a vlm's
 ``patch_embeds`` ``[B, n_patches, d_model]``, put before the tokens (its
 labels are padded with -1 over the patches), or an enc-dec model's
@@ -42,6 +44,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
@@ -76,10 +79,15 @@ def _layer(tree, i: int):
 
 
 def _unstack(tree, n: int) -> list:
-    """The stacked ``layers`` tree as ``n`` per-layer trees (views)."""
+    """The stacked ``layers`` tree as ``n`` per-layer trees (views).  A
+    DTensor leaf whose stack dim is sharded (a norm's ``[L, d]`` scale
+    where the data axis divides L) is gathered over it first."""
     if isinstance(tree, dict):
         subs = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    if isinstance(tree, DTensor) and Shard(0) in tree.placements:
+        tree = tree.redistribute(tree.device_mesh, [
+            Replicate() if p == Shard(0) else p for p in tree.placements])
     return list(torch.unbind(tree, 0))
 
 
@@ -105,15 +113,20 @@ def _zero_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _stack_forward(p, batch, cfg, block, remat: bool):
-    x = _embed_inputs(p, batch, cfg)
+def _keep(x):
+    return x
+
+
+def _stack_forward(p, batch, cfg, block, remat: bool, constrain):
+    c = constrain or _keep
+    x = c(_embed_inputs(p, batch, cfg))
     for p_l in _unstack(p["layers"], cfg.n_layers):
-        x = _run(block, x, p_l, cfg, remat)
+        x = c(_run(block, x, p_l, cfg, remat))
     return _logits(p, x, cfg), _zero_aux(x)
 
 
-def _dense_forward(p, batch, cfg, remat: bool = False):
-    return _stack_forward(p, batch, cfg, _dense_block, remat)
+def _dense_forward(p, batch, cfg, remat: bool = False, constrain=None):
+    return _stack_forward(p, batch, cfg, _dense_block, remat, constrain)
 
 
 def _flat_kv_zeros(cfg, bsz: int, s_max: int, layers: int, dtype, device):
@@ -160,14 +173,15 @@ def _moe_super(h, ps, cfg):
     return h, aux
 
 
-def _moe_alt_forward(p, batch, cfg, remat: bool = False):
-    x = _embed_inputs(p, batch, cfg)
+def _moe_alt_forward(p, batch, cfg, remat: bool = False, constrain=None):
+    c = constrain or _keep
+    x = c(_embed_inputs(p, batch, cfg))
     aux = _zero_aux(x)
     n_super = cfg.n_layers // 2
     for ps in zip(_unstack(p["dense_layers"], n_super),
                   _unstack(p["moe_layers"], n_super)):
         x, aux_l = _run(_moe_super, x, ps, cfg, remat)
-        aux = aux + aux_l
+        x, aux = c(x), aux + aux_l
     return _logits(p, x, cfg), aux
 
 
@@ -209,14 +223,16 @@ def _moe_mla_layer(h, p_l, cfg):
     return h, aux
 
 
-def _moe_mla_forward(p, batch, cfg, remat: bool = False):
-    x = L.embed(p["embed"], batch["tokens"])
+def _moe_mla_forward(p, batch, cfg, remat: bool = False, constrain=None):
+    c = constrain or _keep
+    x = c(L.embed(p["embed"], batch["tokens"]))
     x, _ = B.mla_dense_block_full(p["layer0"], x, cfg)   # not under remat
+    x = c(x)
     aux = _zero_aux(x)
     n_moe = cfg.n_layers - cfg.first_dense
     for p_l in _unstack(p["moe_layers"], n_moe):
         x, aux_l = _run(_moe_mla_layer, x, p_l, cfg, remat)
-        aux = aux + aux_l
+        x, aux = c(x), aux + aux_l
     return _logits(p, x, cfg), aux
 
 
@@ -263,8 +279,8 @@ def _mamba_block(h, p_l, cfg):
     return B.mamba_block_full(p_l, h, cfg)[0]
 
 
-def _ssm_forward(p, batch, cfg, remat: bool = False):
-    return _stack_forward(p, batch, cfg, _mamba_block, remat)
+def _ssm_forward(p, batch, cfg, remat: bool = False, constrain=None):
+    return _stack_forward(p, batch, cfg, _mamba_block, remat, constrain)
 
 
 def _mamba_zeros(cfg, bsz: int, lead: tuple, dtype, device):
@@ -290,8 +306,8 @@ def _mamba_decode(p_stack, x, cache, n: int, cfg):
         x, new = B.mamba_block_decode(
             _layer(p_stack, i), x,
             M.MambaCache(conv=cache.conv[i], ssm=cache.ssm[i]), cfg)
-        cache.conv[i].copy_(new.conv)
-        cache.ssm[i].copy_(new.ssm)
+        A.write_at(cache.conv, (i,), new.conv)
+        A.write_at(cache.ssm, (i,), new.ssm)
     return x
 
 
@@ -335,11 +351,12 @@ def _hybrid_group(h, pg, cfg):
     return B.dense_block_full(shared, h, cfg)[0]
 
 
-def _hybrid_forward(p, batch, cfg, remat: bool = False):
-    x = _embed_inputs(p, batch, cfg)
+def _hybrid_forward(p, batch, cfg, remat: bool = False, constrain=None):
+    c = constrain or _keep
+    x = c(_embed_inputs(p, batch, cfg))
     group, n_groups, tail = _hybrid_dims(cfg)
     for p_g in _unstack(p["mamba_groups"], n_groups):
-        x = _run(_hybrid_group, x, (p_g, p["shared_attn"]), cfg, remat)
+        x = c(_run(_hybrid_group, x, (p_g, p["shared_attn"]), cfg, remat))
     if tail:    # not under remat, as in the JAX package
         for p_l in _unstack(p["mamba_tail"], tail):
             x = _mamba_block(x, p_l, cfg)
@@ -410,14 +427,15 @@ def _decoder_layer(h, pe, cfg):
                                 cfg)[0]
 
 
-def _encdec_forward(p, batch, cfg, remat: bool = False):
-    enc_out = _encode(p, batch["audio_embeds"], cfg)
+def _encdec_forward(p, batch, cfg, remat: bool = False, constrain=None):
+    c = constrain or _keep
+    enc_out = c(_encode(p, batch["audio_embeds"], cfg))
     S = batch["tokens"].shape[1]
     x = L.embed(p["embed"], batch["tokens"])
-    x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(
-        x.dtype)[None]
+    x = c(x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(
+        x.dtype)[None])
     for p_l in _unstack(p["dec_layers"], cfg.n_layers):
-        x = _run(_decoder_layer, x, (p_l, enc_out), cfg, remat)
+        x = c(_run(_decoder_layer, x, (p_l, enc_out), cfg, remat))
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return L.unembed(p["embed"], x), _zero_aux(x)
 
@@ -478,15 +496,20 @@ def init_params(cfg, gen: torch.Generator | None = None, device=None):
     return init(gen, cfg, L.dtype_of(cfg), device)
 
 
-def forward(params, batch, cfg, remat: bool = False):
+def forward(params, batch, cfg, remat: bool = False, constrain=None):
     """Full-sequence forward -> (logits ``[B, S, V]`` in the params'
     dtype, a vlm's ``S`` counting the patches; the f32 aux loss: the MoE
-    load-balancing loss summed over super-layers, else 0)."""
-    return _family_fns(cfg)[1](params, batch, cfg, remat)
+    load-balancing loss summed over super-layers, else 0).  ``constrain``
+    (``launch.steps.make_activation_constraint``) is applied where the
+    JAX package applies it: to the embedded inputs (an MLA model's after
+    layer 0 too; an enc-dec model's encoder output and decoder inputs) and
+    to each layer's output (a hybrid's each group's, not its tail's), here
+    after the layer's remat, where JAX constrains inside it."""
+    return _family_fns(cfg)[1](params, batch, cfg, remat, constrain)
 
 
-def loss_fn(params, batch, cfg, remat: bool = False):
-    logits, aux = forward(params, batch, cfg, remat)
+def loss_fn(params, batch, cfg, remat: bool = False, constrain=None):
+    logits, aux = forward(params, batch, cfg, remat, constrain)
     labels = batch["labels"]
     if cfg.family == "vlm":    # patch positions carry no labels
         pad = labels.new_full(batch["patch_embeds"].shape[:2], -1)
@@ -532,3 +555,17 @@ def count_params(cfg) -> int:
             else t.numel()
 
     return int(total(tree))
+
+
+def active_params(cfg) -> int:
+    """Active parameters per token (MoE: routed experts count k-of-E)."""
+    total = count_params(cfg)
+    if cfg.family != "moe":
+        return total
+    # subtract inactive routed-expert weights
+    F, D, E, k = cfg.moe_d_ff, cfg.d_model, cfg.n_experts, \
+        cfg.experts_per_token
+    n_moe_layers = (cfg.n_layers - cfg.first_dense if cfg.use_mla
+                    else cfg.n_layers // 2)
+    per_expert = 3 * D * F
+    return total - n_moe_layers * per_expert * (E - k)

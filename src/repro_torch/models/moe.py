@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import layers as L
 
@@ -54,11 +55,16 @@ def _top_k(probs, k: int):
 def moe_apply(p, x, cfg):
     """x ``[B, S, D]`` -> ``(y [B, S, D], aux_loss f32, expert_load [E]
     f32)``: ``expert_load`` counts the token copies each expert kept."""
+    if isinstance(x, DTensor):    # tokens over the batch's shards only
+        x = x.redistribute(x.device_mesh, [
+            pl if pl == Shard(0) else Replicate() for pl in x.placements])
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.experts_per_token
     C = _capacity(T, cfg)
     xf = x.reshape(T, D)
+    if isinstance(xf, DTensor):   # its gradient comes back in this layout
+        xf = xf.redistribute(xf.device_mesh, xf.placements)
 
     probs = torch.softmax(xf.float() @ p["router"]["w"], dim=-1)  # [T, E]
     gate_vals, expert_idx = _top_k(probs, k)                      # [T, k]
@@ -87,6 +93,9 @@ def moe_apply(p, x, cfg):
 
     if cfg.n_shared_experts:
         y = y + L.swiglu(p["shared"], xf)
+    if isinstance(y, DTensor):    # the tokens laid out as x's again
+        y = y.redistribute(y.device_mesh, L.settled(y))
+        y = y.redistribute(y.device_mesh, xf.placements)
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
     frac_tokens = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)

@@ -6,12 +6,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card.  Without CUDA that raises: the port
-    runs on the CPU only when the caller asks for ``device="cpu"``."""
+    runs on the CPU only when the caller asks for ``device="cpu"``.
+    ``"meta"`` gives shapes and dtypes with nothing allocated (the dry
+    run's inputs, ``launch/specs.py``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the plain versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -102,7 +102,17 @@ def test_gradients_match_jax(shape):
                                    atol=1e-5 * max(np.abs(w).max(), 1e-30))
 
 
+class _OnAnotherDevice:
+    """Stands for a tensor on a device the op does not run on."""
+    device = torch.device("xpu")
+
+
 def test_op_rejects_other_devices():
+    """A device other than cuda, meta (the dry run's shapes: the custom
+    op's fake output) or cpu raises."""
     x = torch.zeros((1, 4, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.flash_attention(x, x, x)
+    out = ops.flash_attention(x, x, x)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 4, 2, 16)
+    other = _OnAnotherDevice()
+    with pytest.raises(ValueError, match="cuda, meta or cpu"):
+        ops.flash_attention(other, other, other)

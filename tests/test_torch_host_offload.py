@@ -7,7 +7,8 @@ missing.  JAX's is called with a one-device mesh: without one it raises
 under this JAX (ROADMAP queue 3), where the port's works.  Values, dtype
 and shape are held equal in both modes; ``buffer`` returns its input.
 The card's side (a pinned host copy, a tensor back on the card) is
-tests/test_torch_kernels_cuda.py's.
+tests/test_torch_kernels_cuda.py's.  A mesh of more than one device is
+a (2, 2) mesh over a fake process group of 4 ranks.
 """
 import jax
 import numpy as np
@@ -60,11 +61,33 @@ def test_supports_memkind_is_cuda_present(monkeypatch):
         assert HO.supports_memkind() is present
 
 
+@pytest.fixture
+def fake_mesh():
+    """A (2, 2) mesh over a fake process group of 4 ranks (this process
+    rank 0), destroyed after the test."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.bring_up("fake", world_size=4)
+    try:
+        yield mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    finally:
+        mesh_lib.tear_down()
+
+
 @pytest.mark.parametrize("fn", ["to_slow_tier", "to_fast_tier"])
-def test_larger_mesh_and_unknown_mode_raise(fn):
-    x = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="JAX-specific launch "
-                                                  "layer"):
+def test_larger_mesh_and_unknown_mode_raise(fn, fake_mesh):
+    """A mesh of more than one device gives the tensor replicated over
+    it (JAX's ``NamedSharding(mesh, P())``), in ``buffer`` the input
+    itself; a device count of more than one names no devices and raises,
+    as does an unknown mode."""
+    from torch.distributed.tensor import DTensor, Replicate
+    x = torch.arange(12.0).view(3, 4)
+    got = getattr(HO, fn)(x, "memkind", mesh=fake_mesh)
+    assert isinstance(got, DTensor) and got.device_mesh is fake_mesh
+    assert tuple(got.placements) == (Replicate(), Replicate())
+    assert tuple(got.shape) == (3, 4)
+    np.testing.assert_array_equal(got.to_local().numpy(), x.numpy())
+    assert getattr(HO, fn)(x, "buffer", mesh=fake_mesh) is x
+    with pytest.raises(ValueError, match="pass its DeviceMesh"):
         getattr(HO, fn)(x, "memkind", mesh=2)
     with pytest.raises(ValueError, match="unknown slow-tier mode"):
         getattr(HO, fn)(x, "pinned")

@@ -133,8 +133,19 @@ def test_ssd_chunked_rejects_a_ragged_sequence():
         ref.ssd_chunked(x, dt, A, Bm, Cm, 8)
 
 
+class _OnAnotherDevice:
+    """Stands for a tensor on a device the op does not run on."""
+    device = torch.device("xpu")
+
+
 def test_op_rejects_other_devices():
+    """A device other than cuda, meta (the dry run's shapes: the custom
+    op's fake outputs) or cpu raises."""
     x = torch.zeros((1, 8, 2, 4), device="meta")
     bc = torch.zeros((1, 8, 4), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.mamba_scan(x, x[..., 0], x[0, 0, :, 0], bc, bc, chunk=8)
+    y, h = ops.mamba_scan(x, x[..., 0], x[0, 0, :, 0], bc, bc, chunk=8)
+    assert y.device.type == "meta" and tuple(y.shape) == (1, 8, 2, 4)
+    assert h.dtype == torch.float32 and tuple(h.shape) == (1, 2, 4, 4)
+    other = _OnAnotherDevice()
+    with pytest.raises(ValueError, match="cuda, meta or cpu"):
+        ops.mamba_scan(other, other, other, other, other, chunk=8)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` (host
-offload among them) and ``chip_smoke.py`` (a fresh interpreter) pulls in
-neither JAX nor any module of the JAX package ``repro``."""
+offload and the launch layer among them) and ``chip_smoke.py`` (a fresh
+interpreter) pulls in neither JAX nor any module of the JAX package
+``repro``, and brings up no process group."""
 import os
 import subprocess
 import sys
@@ -17,9 +18,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import torch.distributed as dist
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), "repro_torch.tiering.host_offload" in names, bad)
+launch = all(f"repro_torch.{{m}}" in names for m in (
+    "roofline", "launch.mesh", "launch.sharding", "launch.specs",
+    "launch.dryrun", "utils.act_sharding"))
+print(len(names), "repro_torch.tiering.host_offload" in names and launch,
+      dist.is_initialized(), bad)
 """
 
 
@@ -29,6 +35,7 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n_modules, offload, bad = proc.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 20 and offload == "True"
+    n_modules, named, group, bad = proc.stdout.strip().split(" ", 3)
+    assert int(n_modules) >= 100 and named == "True"
+    assert group == "False", "importing the port brought up a process group"
     assert bad == "[]", f"port imported {bad}"

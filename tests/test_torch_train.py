@@ -342,8 +342,7 @@ def test_entry_points_default_to_the_card_and_reject_other_families():
         losses = T.train(arch, 1, 2, 8, device="cpu", log_every=100)
         assert len(losses) == 1 and np.isfinite(losses).all()
     from repro_torch.tiering import host_offload as HO
-    with pytest.raises(NotImplementedError,
-                       match="the JAX-specific launch layer"):
+    with pytest.raises(ValueError, match="pass its DeviceMesh"):
         HO.to_slow_tier(torch.zeros(2), "memkind", mesh=2)
 
 
